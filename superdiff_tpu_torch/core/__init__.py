@@ -1,5 +1,6 @@
-"""SuperDiff core: sigma grids, Itô density estimators and kappa policies."""
+"""SuperDiff core: schedules, Itô density estimators, kappa policies and the
+joint sampler."""
 
-from . import ito, kappa, schedules
+from . import ito, kappa, schedules, superpose
 
-__all__ = ["ito", "kappa", "schedules"]
+__all__ = ["ito", "kappa", "schedules", "superpose"]

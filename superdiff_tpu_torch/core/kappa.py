@@ -1,6 +1,7 @@
 """Mixing-weight (kappa) policies (port of ``superdiff_tpu/core/kappa.py``).
 
-Only the OR policy runs in this slice. Like the JAX package, every policy
+The OR policies (two-model ``kappa_or`` of the SD stack, N-model
+``or_weights`` of the CIFAR stack) are ported. Like the JAX package, every policy
 works on float32 accumulators: the OR softmax at high temperature is an
 argmax in disguise and must not see bf16 rounding noise.
 """
@@ -8,6 +9,13 @@ argmax in disguise and must not see bf16 rounding noise.
 from __future__ import annotations
 
 import torch
+
+
+def or_weights(logq: torch.Tensor, temperature: float = 1e6) -> torch.Tensor:
+    """N-model OR weights: ``softmax(T * logq)`` along the last axis; with the
+    reference's T = 1e6 a smooth argmax over the running log-likelihoods
+    (``cifar/dynamics.py:90,124``). (B, N) -> (B, N) fp32."""
+    return torch.softmax(temperature * logq.float(), dim=-1)
 
 
 def kappa_or(ll_a: torch.Tensor, ll_b: torch.Tensor, temperature: float = 1.0,

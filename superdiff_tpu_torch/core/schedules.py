@@ -1,18 +1,97 @@
-"""Sigma grid for sigma-space sampling (port of ``superdiff_tpu/core/schedules.py``).
+"""Noise schedules (port of ``superdiff_tpu/core/schedules.py``).
 
-Only what the SD slice needs: the discrete DDPM cumulative-alpha table and
-the ``EulerDiscrete`` sigma grid. The grid is built host-side in float64
-with numpy, exactly as the JAX package builds it, and handed out as float32
-tensors (``as_arrays``), as JAX's ``as_arrays`` does.
+* ``VPSchedule`` / ``CosineVPSchedule``: the CIFAR stack's VP-SDE, frozen
+  dataclasses of scalars whose methods are closed-form in ``t``. They work on
+  Python floats (math) and on tensors (torch, in the tensor's dtype); the
+  samplers pass 0-d float32 tensors, so the step scalars are float32, as
+  the JAX package computes them.
+* The discrete DDPM cumulative-alpha table and the ``EulerDiscrete`` sigma
+  grid of the SD stack, built host-side in float64 with numpy, exactly as the
+  JAX package builds them, and handed out as float32 tensors
+  (``as_arrays``), as JAX's ``as_arrays`` does.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Tuple
 
 import numpy as np
 import torch
+
+
+def _exp(t):
+    return torch.exp(t) if isinstance(t, torch.Tensor) else math.exp(t)
+
+
+def _log(t):
+    return torch.log(t) if isinstance(t, torch.Tensor) else math.log(t)
+
+
+def _expm1(t):
+    return torch.expm1(t) if isinstance(t, torch.Tensor) else math.expm1(t)
+
+
+@dataclasses.dataclass(frozen=True)
+class VPSchedule:
+    """Variance-preserving SDE with the reference's linear-sigma convention
+    (``cifar/dynamics.py:15-27``): ``log_alpha(t) = -0.5 t b0 - 0.25 t^2
+    (b1-b0)``, ``sigma(t) = t``, ``beta(t) = 1 + 0.5 t b0 + 0.5 t^2 (b1-b0)``.
+
+    Forward kernel ``x_t = alpha(t) x_0 + sigma(t) eps``; the reverse SDE
+    drift uses ``beta(t)`` as the score scaling.
+    """
+
+    beta_0: float = 0.1
+    beta_1: float = 20.0
+
+    def log_alpha(self, t):
+        return -0.5 * t * self.beta_0 - 0.25 * t**2 * (self.beta_1 - self.beta_0)
+
+    def alpha(self, t):
+        return _exp(self.log_alpha(t))
+
+    def log_sigma(self, t):
+        return _log(t)
+
+    def sigma(self, t):
+        return t
+
+    def dlog_alpha_dt(self, t):
+        return -0.5 * self.beta_0 - 0.5 * t * (self.beta_1 - self.beta_0)
+
+    def dlog_sigma_dt(self, t):
+        return 1.0 / t
+
+    def beta(self, t):
+        """Score-drift coefficient ``sigma_t^2 d/dt log(sigma_t / alpha_t)``,
+        as the reference's expanded polynomial."""
+        return 1.0 + 0.5 * t * self.beta_0 + 0.5 * t**2 * (self.beta_1 - self.beta_0)
+
+    def marginal(self, x0, eps, t):
+        """Forward diffusion sample ``x_t`` given data and noise."""
+        return self.alpha(t) * x0 + self.sigma(t) * eps
+
+
+@dataclasses.dataclass(frozen=True)
+class CosineVPSchedule(VPSchedule):
+    """Standard VP-SDE sigma: ``sigma^2 = 1 - alpha^2`` (textbook variant)."""
+
+    def log_sigma(self, t):
+        var = -_expm1(-t * self.beta_0 - 0.5 * t**2 * (self.beta_1 - self.beta_0))
+        return 0.5 * _log(var)
+
+    def sigma(self, t):
+        return _exp(self.log_sigma(t))
+
+    def dlog_sigma_dt(self, t):
+        b = self.beta_0 + t * (self.beta_1 - self.beta_0)
+        e = _exp(-t * self.beta_0 - 0.5 * t**2 * (self.beta_1 - self.beta_0))
+        return 0.5 * b * e / (1.0 - e)
+
+    def beta(self, t):
+        return self.sigma(t) ** 2 * (self.dlog_sigma_dt(t) - self.dlog_alpha_dt(t))
 
 
 def ddpm_alphas_cumprod(

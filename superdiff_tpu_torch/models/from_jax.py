@@ -11,9 +11,11 @@ mechanical: a Flax path ``down_0_res_0/conv1/kernel`` becomes the
 * ``GroupNorm_0/{scale,bias}`` -> the GroupNorm32 module's ``weight``/``bias``,
   LayerNorm ``scale`` -> ``weight``, ``Embed`` ``embedding`` -> ``weight``.
 
-The same function serves the UNet, the CLIP text encoder and the VAE
-decoder. ``superdiff_tpu/models/sd/convert.py::unet_mapping`` maps diffusers
-keys onto these Flax names, so a safetensors loader can chain through it.
+One carrier serves both model families: the SD-1.x stack (UNet, CLIP text
+encoder, VAE decoder) and the CIFAR ``ScoreUNet``, whose children carry
+Flax's auto-names (``ResnetBlock_3/Conv_1``). For SD,
+``superdiff_tpu/models/sd/convert.py::unet_mapping`` maps diffusers keys onto
+these Flax names, so a safetensors loader can chain through it.
 """
 
 from __future__ import annotations
@@ -56,6 +58,13 @@ def state_dict_from_flax(params: Mapping) -> dict[str, torch.Tensor]:
     return out
 
 
+def flax_zeros(layer: nn.Module) -> nn.Module:
+    """Mark a Linear or Conv2d whose Flax counterpart has
+    ``kernel_init=zeros``: :func:`init_like_flax_` zeroes it."""
+    layer.flax_zero_init = True
+    return layer
+
+
 def _normal_(w: torch.Tensor, std: float, generator) -> None:
     tmp = torch.empty(w.shape, dtype=torch.float32, device=w.device)
     tmp.normal_(0.0, std, generator=generator)
@@ -66,17 +75,23 @@ def _normal_(w: torch.Tensor, std: float, generator) -> None:
 def init_like_flax_(model: nn.Module, generator: torch.Generator | None = None):
     """Redraw ``model``'s parameters with the Flax initialisers' distributions:
     ``lecun_normal`` (truncated normal on +-2 std, variance 1/fan_in) for
-    dense and conv kernels, zero biases, fan-in normal ``Embed`` tables,
-    ``normal(0.01)`` position embeddings, unit/zero norm params. Draws in
-    fp32 from ``generator`` and copies into each parameter's dtype, so the
-    random-weight model has the JAX model's activation scales."""
+    dense and conv kernels, zeros for kernels marked by :func:`flax_zeros`,
+    zero biases, fan-in normal ``Embed`` tables, ``normal(0.01)`` position
+    embeddings, unit/zero norm params. Draws in fp32 from ``generator`` and
+    copies into each parameter's dtype, so the random-weight model has the
+    JAX model's activation scales."""
     for m in model.modules():
         if isinstance(m, (nn.Linear, nn.Conv2d)):
-            fan_in = m.weight[0].numel()
-            std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
-            tmp = torch.empty(m.weight.shape, dtype=torch.float32, device=m.weight.device)
-            nn.init.trunc_normal_(tmp, std=std, a=-2 * std, b=2 * std, generator=generator)
-            m.weight.copy_(tmp)
+            if getattr(m, "flax_zero_init", False):
+                m.weight.zero_()
+            else:
+                fan_in = m.weight[0].numel()
+                std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
+                tmp = torch.empty(m.weight.shape, dtype=torch.float32,
+                                  device=m.weight.device)
+                nn.init.trunc_normal_(tmp, std=std, a=-2 * std, b=2 * std,
+                                      generator=generator)
+                m.weight.copy_(tmp)
             if m.bias is not None:
                 m.bias.zero_()
         elif isinstance(m, nn.Embedding):

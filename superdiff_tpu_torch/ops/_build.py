@@ -29,7 +29,7 @@ import threading
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-KERNELS = ("sd_fused_step", "flash_attention", "geglu_ffn")
+KERNELS = ("sd_fused_step", "flash_attention", "geglu_ffn", "fused_step")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",

@@ -1,5 +1,5 @@
-"""End-to-end pipelines."""
+"""End-to-end pipelines: the SD-1.x composition and the CIFAR joint sampler."""
 
-from . import sd
+from . import cifar, sd
 
-__all__ = ["sd"]
+__all__ = ["cifar", "sd"]

@@ -21,7 +21,7 @@ import torch
 
 from ..core.schedules import SigmaGrid
 from ..models.sd.clip import CLIPTextConfig, CLIPTextEncoder, Tokenizer
-from ..models.sd.from_jax import init_like_flax_
+from ..models.from_jax import init_like_flax_
 from ..models.sd.unet import SDUNet, SDUNetConfig
 from ..models.sd.vae import VAEConfig, VAEDecoder, decode_to_uint8
 from ..ops.sd_fused_step import sd_or_step
@@ -69,7 +69,7 @@ def build_sd_modules(
 ) -> SDModules:
     """Build the SD stack on ``device`` with random weights drawn from
     ``seed`` with the Flax initialisers' distributions. Load carried weights
-    afterwards with ``load_state_dict`` (see ``models/sd/from_jax.py``)."""
+    afterwards with ``load_state_dict`` (see ``models/from_jax.py``)."""
     device = torch.device(device)
     gen = torch.Generator(device=device).manual_seed(seed)
     tcfg = text_config or CLIPTextConfig()

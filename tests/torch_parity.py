@@ -8,7 +8,7 @@ import jax
 import numpy as np
 import torch
 
-from superdiff_tpu_torch.models.sd.from_jax import state_dict_from_flax
+from superdiff_tpu_torch.models.from_jax import state_dict_from_flax
 
 
 def draw_params(module, *example_args, seed=0):
