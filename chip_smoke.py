@@ -9,17 +9,35 @@ Phases, in order; any failed check raises and the script exits non-zero:
    with ``nvcc`` for sm_90a, one process per source, all started together;
    print the build seconds and the card's name and power limit.
 2. kernels: call each kernel's wrapper on the card at a tiny shape and at
-   every shape the 512 px main path gives it, and hold the result against
-   its plain PyTorch version on the same inputs (tolerance printed beside
-   the error). Time the kernel, the plain version and, where one exists, the
-   single PyTorch call computing the same function; work out the bound.
+   every shape the main paths give it (512 and 768 px), and hold the result
+   against its plain PyTorch version on the same inputs (tolerance printed
+   beside the error). The (B,H,L,D) attention kernel is checked under every
+   TPU-kernel name it stands for, in both sum modes, at head dims 40, 80 and
+   160 and 576 to 9216 tokens, its plain version looped over (b, h) slices.
+   Time the kernel, the plain version and, where one exists, the single
+   PyTorch call computing the same function; work out the bound.
 3. main path: SD-1.x UNet, CLIP text encoder and VAE decoder at their
    default (full) configs, random bf16 weights from ``--seed``, method
    ``or``, 512 px, latent batch 8 (context batch 24 with conditioning
-   dedup), ``--steps`` Euler steps through ``generate``. Launch counters are
-   zeroed just before and read just after, and must show every step went
-   through all three kernels. Latents must be finite, kappa in [0, 1], the
-   images uint8. Per-step ms is then timed after two synced warmups.
+   dedup), ``--steps`` Euler steps through ``generate``. Every launch count
+   is zeroed just before and read just after, and must show every step went
+   through its three kernels and no other. Latents must be finite, kappa in
+   [0, 1], the images uint8. Per-step ms is then timed on ready contexts.
+   3b. the same at 768 px, 2 steps: per step 5 launches each of the
+   online-softmax kernel (9216 tokens), the d-major kernel (2304 tokens)
+   and ``_kernel_mh`` (576 tokens, head dim 160), 16 of ``geglu_ffn_block``,
+   1 of ``sd_or_step``; ms per step and peak memory. Then one step at
+   1024 px (16384-token rows in the online-softmax kernel, head dims 80 and
+   160 in the d-major kernel).
+   3c. 512 px under ``attn_impl="flash_eo"`` (2 steps), then one step under
+   every other ``_LONG_IMPL`` name and one under ``attn_impl="flash"``, each
+   counted under its own TPU-kernel name; the latents under the bf16-sum
+   names must be equal bit for bit, those of ``flash`` and ``flash_eo``
+   within the printed tolerance.
+   3d. ``and``, ``avg`` (2 steps), ``avg_ode``, ``sd_a`` (1 step) at latent
+   batch 8 and ``and_ode`` (1 step after a warmup, latent batch 2, beside an
+   ``or`` step of that batch): finite, ``avg`` kappa fixed, ``sd_a`` moves
+   ``final_ll_uncond``.
 4. CIFAR joint sampler: two full-width ``vpsdeA`` ScoreUNets (36.0 M
    parameters each, bf16 compute) with drawn non-zero weights, labels tiled
    0-9, batch 100, ``--cifar-steps`` SDE/OR steps through ``make_generator``
@@ -31,21 +49,24 @@ Phases, in order; any failed check raises and the script exits non-zero:
    be finite.
 5. profiles and CPU references, after every timed run (a torch.profiler
    session slows the host's later launches for the rest of the process):
-   one SD sampler run and 10 CIFAR SDE/OR steps are traced with
-   torch.profiler (CIFAR: device time by kernel family), and a 64x64-latent
-   SD UNet forward and a batch-4 ScoreUNet forward on the card are each held
-   against the same weights in fp32 on the host CPU.
+   one 512 px SD sampler run, one 768 px step (device time by kernel family)
+   and 10 CIFAR SDE/OR steps are traced with torch.profiler, and a
+   64x64-latent SD UNet forward and a batch-4 ScoreUNet forward on the card
+   are each held against the same weights in fp32 on the host CPU.
 
-The line before the last is the kernel table as JSON: ``launches`` over its
-main-path run (phase 3 for the SD kernels, phase 4 for ``fused_sde_step``),
-``max_abs_err`` the worst over the checked shapes, and ``ms`` / ``plain_ms``
-/ ``bound_ms`` / ``library_ms`` per main-path step (each main-path shape's
-time per launch times its launches per step). The card's name and power
-limit are on the line before it; the last line is
-``{"ok": true, "device": {...}}``. Compiler output (registers, spills) goes
-to ``chiprun_out/chip_smoke_build.txt``, the profile tables to
-``chiprun_out/chip_smoke_profile.txt`` (SD) and
-``chiprun_out/chip_smoke_cifar_profile.txt`` (CIFAR).
+The line before the last is the kernel table as JSON, one row per TPU kernel:
+``launches`` over the run of the path the kernel serves (phase 3 for
+``sd_or_step``, ``flash_mha_eod`` and ``geglu_ffn_block``, phase 3b for
+``_kernel`` and ``_kernel_mh``, phase 3c for the ``_LONG_IMPL`` kernels,
+phase 4 for ``fused_sde_step``), ``max_abs_err`` the worst over the checked
+shapes, and ``ms`` / ``plain_ms`` / ``bound_ms`` / ``library_ms`` per step of
+that path (each of its shapes' time per launch times its launches per
+step). The card's name and power limit are on the line before it; the last
+line is ``{"ok": true, "device": {...}}``. Compiler output (registers,
+spills) goes to ``chiprun_out/chip_smoke_build.txt``, the profile tables to
+``chiprun_out/chip_smoke_profile.txt`` (SD 512 px),
+``chiprun_out/chip_smoke_sd768_profile.txt`` and
+``chiprun_out/chip_smoke_cifar_profile.txt``.
 """
 
 from __future__ import annotations
@@ -58,6 +79,7 @@ import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
+PROMPTS = ("a cat", "a dog")
 
 # H100 SXM data sheet (dense): bf16 tensor cores, HBM, and the SFU exp2 rate
 # (16 per clock per SM, 132 SMs, 1.98 GHz boost clock)
@@ -138,7 +160,7 @@ def check_sd_or_step(dev):
 
     c = Check("sd_or_step", "superdiff_tpu_torch/ops/csrc/sd_fused_step.cu",
               "superdiff_tpu/ops/pallas/sd_fused_step.py:32", "bytes")
-    for (b, d), per_step in (((3, 4096), 0), ((8, 16384), 1)):
+    for (b, d), per_step in (((3, 4096), 0), ((8, 16384), 1), ((8, 36864), 0)):
         g = torch.Generator(device=dev).manual_seed(b)
         rows = [torch.randn(b, d, device=dev, generator=g) for _ in range(5)]
         ll = torch.randn(b, 2, device=dev, generator=g) * 3
@@ -172,8 +194,10 @@ def check_flash(dev):
 
     c = Check("flash_mha_eod", "superdiff_tpu_torch/ops/csrc/flash_attention.cu",
               "superdiff_tpu/ops/pallas/flash_attention.py:254", "operations")
+    # the last three: the 768 px level-1 rows, and levels 1 and 2 at 1024 px
     shapes = (((2, 2, 40, 256), 0), ((2, 2, 80, 576), 0),
-              ((8, 8, 40, 4096), 1), ((24, 8, 40, 4096), 4), ((24, 8, 80, 1024), 5))
+              ((8, 8, 40, 4096), 1), ((24, 8, 40, 4096), 4), ((24, 8, 80, 1024), 5),
+              ((24, 8, 80, 2304), 0), ((24, 8, 80, 4096), 0), ((24, 8, 160, 1024), 0))
     for (b, h, d, l), per_step in shapes:
         g = torch.Generator(device=dev).manual_seed(l + d)
         qt = torch.randn(b, h, d, l, device=dev, generator=g).to(torch.bfloat16)
@@ -209,6 +233,114 @@ def check_flash(dev):
     return c
 
 
+def time_once_ms(fn):
+    """Device ms of one synced ``fn()`` (for the sliced plain versions, which
+    take seconds; the comparison run before it was the warmup)."""
+    import torch
+
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end)
+
+
+# TPU kernel of flash_attention.py -> (line, the _LONG_IMPL names that reach it)
+BHLD_KERNELS = {
+    "_kernel": (61, ()),
+    "_kernel_1block": (102, ("1block",)),
+    "_kernel_1block_mxsum": (124, ("mxsum",)),
+    "_make_pipe_kernel": (157, ("pipe2", "pipe4")),
+    "_make_pvt_kernel": (199, ("pvt1", "pvt2", "pvt4")),
+    "_kernel_mh": (364, ()),
+}
+
+
+def check_bhld(dev):
+    """Kernels A (single block, both sum modes) and B (online softmax) of
+    ``flash_attention_bhld.cu`` under every TPU-kernel name, each against
+    its own mode's plain version looped over (b, h) slices (the logits of a
+    whole main-path shape do not fit the card). ``per_step`` counts the
+    launches of the path the kernel serves: the 768 px ``or`` step for
+    ``_kernel`` and ``_kernel_mh``, the 512 px ``flash_eo`` / ``flash`` step
+    for the ``_LONG_IMPL`` kernels."""
+    import torch
+    import torch.nn.functional as F
+
+    from superdiff_tpu_torch.ops import flash_attention as m
+
+    def plain(name, q, k, v, bq, bk):
+        out = torch.empty(q.shape, dtype=q.dtype, device=dev)
+        for b in range(q.shape[0]):
+            for h in range(q.shape[1]):
+                sl = (slice(b, b + 1), slice(h, h + 1))
+                out[sl] = m._plain(name, q[sl], k[sl], v[sl], q.shape[3] ** -0.5, bq, bk)
+        return out
+
+    long_rows = (((2, 2, 2048, 40), 0), ((8, 8, 4096, 40), 1), ((24, 8, 4096, 40), 4))
+    mid_rows = (((2, 2, 576, 160), 0), ((24, 8, 576, 160), 5), ((24, 8, 1024, 80), 0))
+    plan = {
+        "_kernel": (((2, 2, 4608, 40), 0), ((8, 8, 9216, 40), 1), ((24, 8, 9216, 40), 4),
+                    ((8, 8, 16384, 40), 0),   # level 0 at 1024 px
+                    # one kv block, which dispatch never hands to this kernel:
+                    # one pass against the two passes of the rows below
+                    ((24, 8, 4096, 40), 0)),
+        "_kernel_mh": mid_rows,
+        "_kernel_1block": long_rows + tuple((s, 0) for s, _ in mid_rows[1:]),
+        "_kernel_1block_mxsum": long_rows,
+        "_make_pipe_kernel": long_rows,
+        "_make_pvt_kernel": long_rows + tuple((s, 0) for s, _ in mid_rows[1:]),
+    }
+    checks = {}
+    for name, shapes in plan.items():
+        line, impls = BHLD_KERNELS[name]
+        c = checks[name] = Check(
+            f"flash_mha_bhld:{name}", "superdiff_tpu_torch/ops/csrc/flash_attention_bhld.cu",
+            f"superdiff_tpu/ops/pallas/flash_attention.py:{line}", "operations")
+        for (b, h, l, d), per_step in shapes:
+            g = torch.Generator(device=dev).manual_seed(l + d)
+            # (B,H,L,D) views of one packed projection, as flash_eo hands them over
+            qkv = torch.randn(b, l, 3, h, d, device=dev, generator=g).to(torch.bfloat16)
+            q, k, v = (qkv[:, :, i].permute(0, 2, 1, 3) for i in range(3))
+            block_q, block_k = m._blocks(l, l, None, None)
+            m._LONG_IMPL = impls[0] if impls else "pvt1"
+            if m._tiles(block_q, block_k, l) and m._kernel_name(l, block_k) == name:
+                run = lambda: m.flash_mha_bhld(q, k, v)  # the public entry picks it
+            elif per_step:
+                raise AssertionError(f"dispatch: {(l, d)} reaches "
+                                     f"{m._kernel_name(l, block_k)}, not {name}")
+            else:
+                # a shape this name is not dispatched to: the kernel directly
+                run = lambda: m._launch_bhld(q, k, v, d ** -0.5, name)
+            before = m.flash_mha_bhld.launches[name]
+            got = run()
+            torch.cuda.synchronize()
+            if m.flash_mha_bhld.launches[name] != before + 1:
+                raise AssertionError(f"{name} {(b, h, l, d)}: the wrapper did not count a launch")
+            ref = plain(name, q, k, v, block_q, block_k)
+            # both round p and the output to bf16, at other places in the sum:
+            # the bf16-level bound measured for the d-major kernel (3.9e-3 on
+            # outputs up to 0.34), relative to the largest output
+            scale = ref.float().abs().max().item()
+            err = (got.float() - ref.float()).abs().max().item()
+            tol = 1.2e-2 * scale
+            ms = time_ms(run, budget_ms=200)
+            m._LONG_IMPL = "pvt1"
+            plain_ms = time_once_ms(lambda: plain(name, q, k, v, block_q, block_k))
+            q_, k_, v_ = q.contiguous(), k.contiguous(), v.contiguous()
+            lib = time_ms(lambda: F.scaled_dot_product_attention(q_, k_, v_), budget_ms=200)
+            del q_, k_, v_
+            ops = 4 * b * h * l * l * d / PEAK_BF16
+            exps = b * h * l * l / PEAK_EXP2
+            nbytes = 4 * b * h * l * d * 2 / PEAK_BYTES
+            c.add((b, h, l, d), err, scale, tol, ms, plain_ms, max(ops, exps, nbytes) * 1e3,
+                  lib, per_step)
+            del qkv, q, k, v, got, ref
+            torch.cuda.empty_cache()
+    return checks
+
+
 def check_geglu(dev):
     import torch
 
@@ -216,8 +348,11 @@ def check_geglu(dev):
 
     c = Check("geglu_ffn_block", "superdiff_tpu_torch/ops/csrc/geglu_ffn.cu",
               "superdiff_tpu/ops/pallas/geglu_ffn.py:114", "operations")
+    # the last four: the 768 px rows (9216, 2304, 576 and 144 tokens at batch 24)
     shapes = (((192, 64), 0), ((24 * 4096, 320), 5), ((24 * 1024, 640), 5),
-              ((24 * 256, 1280), 5), ((24 * 64, 1280), 1))
+              ((24 * 256, 1280), 5), ((24 * 64, 1280), 1),
+              ((24 * 9216, 320), 0), ((24 * 2304, 640), 0), ((24 * 576, 1280), 0),
+              ((24 * 144, 1280), 0))
     for (mm, cc), per_step in shapes:
         f = 4 * cc
         g = torch.Generator(device=dev).manual_seed(cc)
@@ -382,6 +517,7 @@ def profile_by_family(run, path):
     table goes to ``path``. Returns ({family: ms}, wall ms under the
     profiler)."""
     import torch
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -392,6 +528,9 @@ def profile_by_family(run, path):
     events = prof.key_averages()
     path.write_text(events.table(sort_by="self_device_time_total", row_limit=60))
     families = (("fused_sde_step", ("fused_sde_step",)),
+                ("attention kernels", ("attn_bhld", "attn_eod")),
+                ("geglu_ffn_block", ("geglu_",)),
+                ("sd_or_step", ("or_step",)),
                 ("convolution", ("conv", "fprop", "implicit", "cudnn", "nchw", "nhwc")),
                 ("gemm", ("gemm", "cutlass", "cublas", "nvjet")),
                 ("softmax", ("softmax",)),
@@ -401,8 +540,9 @@ def profile_by_family(run, path):
     totals = {}
     for e in events:
         us = e.self_device_time_total
-        if us <= 0 or e.key.startswith(("aten::", "cuda", "Activity Buffer", "Buffer Flush")):
-            continue  # ops, runtime calls, the profiler's own buffers
+        if (us <= 0 or e.device_type != DeviceType.CUDA
+                or e.key.startswith(("aten::", "cuda", "Activity Buffer", "Buffer Flush"))):
+            continue  # ops (which repeat their kernels' time), runtime calls, buffers
         key = e.key.lower()
         fam = next((f for f, words in families if any(w in key for w in words)), "other")
         totals[fam] = totals.get(fam, 0.0) + us / 1e3
@@ -493,6 +633,262 @@ def cifar_profile(models, cfg, labels, dev):
             f"{k} {v / 10:.4f}" for k, v in sorted(fams.items(), key=lambda kv: -kv[1])))
 
 
+def kernel_wrappers():
+    """{row name: (object holding the count, key or None)} for every kernel."""
+    from superdiff_tpu_torch.ops import flash_attention as fa
+    from superdiff_tpu_torch.ops import fused_step, geglu_ffn, sd_fused_step
+
+    rows = {"sd_or_step": (sd_fused_step.sd_or_step, None),
+            "flash_mha_eod": (fa.flash_mha_eod, None),
+            "geglu_ffn_block": (geglu_ffn.geglu_ffn_block, None),
+            "fused_sde_step": (fused_step.fused_sde_step, None)}
+    rows.update({name: (fa.flash_mha_bhld.launches, name) for name in BHLD_KERNELS})
+    return rows
+
+
+def zero_counts():
+    for holder, key in kernel_wrappers().values():
+        if key is None:
+            holder.launches = 0
+        else:
+            holder[key] = 0
+
+
+def read_counts():
+    return {name: (holder.launches if key is None else holder[key])
+            for name, (holder, key) in kernel_wrappers().items()}
+
+
+def expect_counts(what, got, **want):
+    """Every kernel's count over one run: those named in ``want`` exactly,
+    every other 0."""
+    want = {name: want.get(name, 0) for name in got}
+    log(f"  {what}: launches " + ", ".join(f"{k} {v}" for k, v in got.items() if v or want[k]))
+    if got != want:
+        raise AssertionError(f"{what}: launch counts {got} != {want}")
+
+
+def with_attn_impl(sd, mod, impl):
+    """``mod`` with its UNet behind another ``attn_impl``: the same
+    parameter tensors (assigned, not copied), so the same weights."""
+    import dataclasses
+
+    import torch
+
+    with torch.device("meta"):
+        unet = sd.SDUNet(dataclasses.replace(mod.unet.config, attn_impl=impl),
+                         dtype=mod.unet.dtype)
+    unet.load_state_dict(mod.unet.state_dict(), assign=True)
+    return dataclasses.replace(mod, unet=unet.eval().requires_grad_(False))
+
+
+def counted_generate(sd, mod, method, cfg, batch, seed, decode=False):
+    """One ``generate`` with every count set to 0 just before and read just
+    after; returns (output, counts, wall seconds)."""
+    import torch
+
+    zero_counts()
+    t0 = time.perf_counter()
+    out = sd.generate(mod, method, *PROMPTS, seed=seed, batch_size=batch, cfg=cfg,
+                      decode=decode)
+    torch.cuda.synchronize()
+    return out, read_counts(), time.perf_counter() - t0
+
+
+def timed_sampler(sd, mod, method, cfg, batch, seed, dev):
+    """(ms per step, peak GiB) of one synced sampler run on ready contexts."""
+    import torch
+
+    ctxs = sd.prepare_contexts(mod, method, *PROMPTS, batch)
+    sampler = sd.make_sampler(mod, method, cfg)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    x, _ = sampler(*ctxs, generator=gen)
+    float(x.sum())
+    ms = (time.perf_counter() - t0) * 1e3 / cfg.num_inference_steps
+    return ms, torch.cuda.max_memory_allocated() / 2**30
+
+
+def finite(what, *tensors):
+    import torch
+
+    for t in tensors:
+        if not torch.isfinite(t).all():
+            raise AssertionError(f"{what}: not finite")
+
+
+def sd_768_phase(sd, mod, args, dev):
+    """SD ``or`` at 768 px, latent batch 8, default ``attn_impl``: the
+    9216-token rows reach the online-softmax kernel, the 2304-token rows the
+    d-major kernel, the 576-token rows (head dim 160) ``_kernel_mh``. Then
+    one step at 1024 px. Returns the 768 px run's launch counts."""
+    import torch
+
+    one = sd.SDPipelineConfig(num_inference_steps=1, height=768, width=768)
+    cfg = sd.SDPipelineConfig(num_inference_steps=2, height=768, width=768)
+    for _ in range(2):  # two synced warmups
+        float(sd.generate(mod, "or", *PROMPTS, seed=args.seed, batch_size=8, cfg=one,
+                          decode=False)["latents"].sum())
+    out, counts, wall = counted_generate(sd, mod, "or", cfg, 8, args.seed, decode=True)
+    expect_counts("768 px or, 2 steps", counts, sd_or_step=2, flash_mha_eod=10,
+                  geglu_ffn_block=32, _kernel=10, _kernel_mh=10)
+    lat, kappa, img = out["latents"], out["traces"]["kappa"], out["images"]
+    finite("768 px latents", lat)
+    if lat.shape != (8, 96, 96, 4) or not ((kappa >= 0) & (kappa <= 1)).all():
+        raise AssertionError(f"768 px: latents {tuple(lat.shape)}, kappa {kappa}")
+    if img.dtype != torch.uint8 or img.shape != (8, 768, 768, 3):
+        raise AssertionError(f"768 px images {img.dtype} {tuple(img.shape)}")
+    log(f"  generate: {wall:.3f} s wall; latents |x|max {lat.abs().max().item():.4f}; kappa "
+        f"last step {[round(v, 6) for v in kappa[-1].tolist()]}; images {tuple(img.shape)} "
+        f"uint8 mean {img.float().mean().item():.3f}")
+    del out, lat, img
+    torch.cuda.empty_cache()
+    ms, peak = timed_sampler(sd, mod, "or", cfg, 8, args.seed, dev)
+    log(f"  sampler: {ms:.3f} ms per step (UNet forward at context batch 24 + OR "
+        f"epilogue), peak memory {peak:.2f} GiB")
+
+    # one step at 1024 px: 16384-token rows (4 kv blocks of 4096) in the
+    # online-softmax kernel, 4096- and 1024-token rows (head dims 80 and 160)
+    # in the d-major kernel
+    big = sd.SDPipelineConfig(num_inference_steps=1, height=1024, width=1024)
+    float(sd.generate(mod, "or", *PROMPTS, seed=args.seed, batch_size=8, cfg=big,
+                      decode=False)["latents"].sum())
+    out, big_counts, _ = counted_generate(sd, mod, "or", big, 8, args.seed)
+    expect_counts("1024 px or, 1 step", big_counts, sd_or_step=1, flash_mha_eod=10,
+                  geglu_ffn_block=16, _kernel=5)
+    finite("1024 px latents", out["latents"])
+    if out["latents"].shape != (8, 128, 128, 4):
+        raise AssertionError(f"1024 px latents {tuple(out['latents'].shape)}")
+    del out
+    torch.cuda.empty_cache()
+    ms, peak = timed_sampler(sd, mod, "or", big, 8, args.seed, dev)
+    log(f"  1024 px sampler: {ms:.3f} ms per step, peak memory {peak:.2f} GiB")
+    return counts
+
+
+def sd_attn_impl_phase(sd, mod, args, dev):
+    """SD ``or`` at 512 px under ``attn_impl="flash_eo"`` (2 steps), then one
+    step under every other ``_LONG_IMPL`` name and one under
+    ``attn_impl="flash"``. Returns the launches counted under each kernel
+    name."""
+    import torch
+
+    from superdiff_tpu_torch.ops import flash_attention as fa
+
+    eo = with_attn_impl(sd, mod, "flash_eo")
+    one = sd.SDPipelineConfig(num_inference_steps=1)
+    two = sd.SDPipelineConfig(num_inference_steps=2)
+    float(sd.generate(eo, "or", *PROMPTS, seed=args.seed, batch_size=8, cfg=one,
+                      decode=False)["latents"].sum())
+    out, counts, _ = counted_generate(sd, eo, "or", two, 8, args.seed)
+    expect_counts("flash_eo, pvt1, 2 steps", counts, sd_or_step=2, geglu_ffn_block=32,
+                  _make_pvt_kernel=10, _kernel_mh=10)
+    finite("flash_eo latents", out["latents"])
+    launches = {"_make_pvt_kernel": counts["_make_pvt_kernel"]}
+    ms, peak = timed_sampler(sd, eo, "or", two, 8, args.seed, dev)
+    log(f"  flash_eo sampler: {ms:.3f} ms per step, peak memory {peak:.2f} GiB")
+
+    lat = {}
+    for impl in ("pvt1", "pvt1", "1block", "mxsum", "pipe2", "pipe4", "pvt2", "pvt4"):
+        fa._LONG_IMPL = impl
+        out, counts, _ = counted_generate(sd, eo, "or", one, 8, args.seed)
+        fa._LONG_IMPL = "pvt1"
+        name = fa._LONG_KERNELS[impl][0]
+        expect_counts(f"flash_eo, {impl}, 1 step", counts, sd_or_step=1, geglu_ffn_block=16,
+                      _kernel_mh=5, **{name: 5})
+        finite(f"flash_eo {impl} latents", out["latents"])
+        if impl == "pvt1" and impl in lat:
+            repeatable = torch.equal(lat[impl], out["latents"])
+        elif impl != "pvt1":
+            launches[name] = launches.get(name, 0) + counts[name]
+        lat[impl] = out["latents"]
+    scale = lat["pvt1"].abs().max().item()
+    diff = {k: (v - lat["pvt1"]).abs().max().item() for k, v in lat.items()}
+    log(f"  one step, latents against pvt1's (|x|max {scale:.4f}; a repeated pvt1 run is "
+        f"{'' if repeatable else 'NOT '}bit-identical): " +
+        ", ".join(f"{k} {v:.3e}" for k, v in diff.items()))
+    for k, v in diff.items():
+        # one kernel on one input under every bf16-sum name: equal bit for
+        # bit, as far as the libraries around it repeat themselves. 1block
+        # sums the fp32 p instead: below the bf16 grid of an attention
+        # output, but it flips some roundings by one bf16 ulp (2^-8), which
+        # the bf16 UNet carries on like its own rounding noise (its forward
+        # is held to 5e-2 of its fp32 self): 1e-2 of the largest latent
+        if v > (1e-2 * scale if k == "1block" or not repeatable else 0.0):
+            raise AssertionError(f"flash_eo under {k} differs from pvt1 by {v}")
+
+    fl = with_attn_impl(sd, mod, "flash")
+    out, counts, _ = counted_generate(sd, fl, "or", one, 8, args.seed)
+    expect_counts("flash, pvt1, 1 step", counts, sd_or_step=1, geglu_ffn_block=16,
+                  _kernel_mh=5, _make_pvt_kernel=5)
+    d = (out["latents"] - lat["pvt1"]).abs().max().item()
+    log(f"  flash against flash_eo under pvt1: max abs difference {d:.3e} "
+        f"(tol {1e-2 * scale:.3e}: the same kernels on the same values in another layout)")
+    if not d <= 1e-2 * scale:
+        raise AssertionError(f"flash differs from flash_eo by {d}")
+    return launches
+
+
+def sd_methods_phase(sd, mod, args, dev):
+    """The other methods at 512 px, default config: ``and``, ``avg`` (2
+    steps), ``avg_ode``, ``sd_a`` (1 step) at latent batch 8; ``and_ode`` (one
+    ``torch.func.jvp`` through the bf16 UNet, every kernel's tangent through
+    its plain version) at latent batch 2, beside an ``or`` step of that
+    batch."""
+    import torch
+
+    one = sd.SDPipelineConfig(num_inference_steps=1)
+    two = sd.SDPipelineConfig(num_inference_steps=2)
+    for method, cfg in (("and", two), ("avg", two), ("avg_ode", one), ("sd_a", one)):
+        n = cfg.num_inference_steps
+        out, counts, wall = counted_generate(sd, mod, method, cfg, 8, args.seed)
+        expect_counts(f"{method}, {n} steps", counts, flash_mha_eod=10 * n,
+                      geglu_ffn_block=16 * n)
+        tr = out["traces"]
+        finite(method, out["latents"], tr["kappa"], tr["ll_obj"], tr["ll_bg"],
+               tr["final_ll_uncond"])
+        if method.startswith("avg") and not torch.all(tr["kappa"] == cfg.kappa_fixed):
+            raise AssertionError(f"{method}: kappa {tr['kappa']} != {cfg.kappa_fixed}")
+        if (method == "sd_a") != bool((tr["final_ll_uncond"] != 1.0).all()):
+            raise AssertionError(f"{method}: final_ll_uncond {tr['final_ll_uncond']}")
+        log(f"  {method}: {wall * 1e3 / n:.1f} ms per step with the text encoder; |x|max "
+            f"{out['latents'].abs().max().item():.4f}; kappa last step "
+            f"{[round(v, 4) for v in tr['kappa'][-1].tolist()]}; final_ll_uncond[0] "
+            f"{tr['final_ll_uncond'][0].item():.4f}")
+    times = {}
+    for method in ("or", "and_ode"):
+        float(sd.generate(mod, method, *PROMPTS, seed=args.seed, batch_size=2, cfg=one,
+                          decode=False)["latents"].sum())  # warmup
+        ms, peak = timed_sampler(sd, mod, method, one, 2, args.seed, dev)
+        times[method] = ms
+        log(f"  {method}, latent batch 2, 1 step after a 1-step warmup: {ms:.3f} ms, "
+            f"peak memory {peak:.2f} GiB")
+    out, counts, _ = counted_generate(sd, mod, "and_ode", one, 2, args.seed)
+    expect_counts("and_ode, 1 step", counts, flash_mha_eod=10, geglu_ffn_block=16)
+    finite("and_ode", out["latents"], out["traces"]["kappa"], out["traces"]["ll_obj"])
+    log(f"  and_ode / or step: {times['and_ode'] / times['or']:.2f}x; kappa "
+        f"{[round(v, 4) for v in out['traces']['kappa'][-1].tolist()]}")
+
+
+def sd_768_profile(sd, mod, args, dev):
+    """One 768 px ``or`` step under torch.profiler: device time by kernel
+    family, and the device's idle share in that run."""
+    import torch
+
+    cfg = sd.SDPipelineConfig(num_inference_steps=1, height=768, width=768)
+    ctxs = sd.prepare_contexts(mod, "or", *PROMPTS, 8)
+    sampler = sd.make_sampler(mod, "or", cfg)
+    fams, wall = profile_by_family(
+        lambda: sampler(*ctxs, generator=torch.Generator(device=dev).manual_seed(args.seed)),
+        ROOT / "chiprun_out" / "chip_smoke_sd768_profile.txt")
+    total = sum(fams.values())
+    log(f"  profile (one 768 px or step): {total:.3f} ms device time, {wall:.3f} ms wall "
+        f"under the profiler (device idle {1 - total / wall:.3f}); by family (ms): " +
+        ", ".join(f"{k} {v:.4f}" for k, v in sorted(fams.items(), key=lambda kv: -kv[1])))
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--steps", type=int, default=4)
@@ -508,13 +904,7 @@ def main(argv=None) -> int:
         return 2
     sys.path.insert(0, str(ROOT))
     try:
-        from superdiff_tpu_torch.ops import (
-            _build,
-            flash_attention,
-            fused_step,
-            geglu_ffn,
-            sd_fused_step,
-        )
+        from superdiff_tpu_torch.ops import _build
         from superdiff_tpu_torch.pipelines import sd
     except ImportError as e:
         print(f"chip_smoke: superdiff_tpu_torch not found beside this script ({e})",
@@ -541,9 +931,11 @@ def main(argv=None) -> int:
     log(f"  card: {card}")
 
     log("phase 2: kernels vs their plain versions")
-    checks = [check_sd_or_step(dev), check_flash(dev), check_geglu(dev),
-              check_fused_sde_step(dev)]
+    checks = {"sd_or_step": check_sd_or_step(dev), "flash_mha_eod": check_flash(dev),
+              "geglu_ffn_block": check_geglu(dev), "fused_sde_step": check_fused_sde_step(dev)}
+    checks.update(check_bhld(dev))
     torch.cuda.empty_cache()
+    launches = {}
 
     log(f"phase 3: main path (SD-1.x, or, 512 px, latent batch 8, {args.steps} steps)")
     t0 = time.perf_counter()
@@ -551,25 +943,15 @@ def main(argv=None) -> int:
     torch.cuda.synchronize()
     log(f"  build_sd_modules (random bf16 weights): {time.perf_counter() - t0:.2f} s")
     cfg = sd.SDPipelineConfig(num_inference_steps=args.steps)
-    prompts = ("a cat", "a dog")
     one = sd.SDPipelineConfig(num_inference_steps=1)
     for _ in range(2):  # two synced warmups
-        w = sd.generate(mod, "or", *prompts, seed=args.seed, batch_size=8, cfg=one, decode=False)
+        w = sd.generate(mod, "or", *PROMPTS, seed=args.seed, batch_size=8, cfg=one, decode=False)
         float(w["latents"].sum())
-    wrappers = (sd_fused_step.sd_or_step, flash_attention.flash_mha_eod,
-                geglu_ffn.geglu_ffn_block, fused_step.fused_sde_step)
-    for fn in wrappers:
-        fn.launches = 0
-    t0 = time.perf_counter()
-    out = sd.generate(mod, "or", *prompts, seed=args.seed, batch_size=8, cfg=cfg)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = [fn.launches for fn in wrappers]
-    want = [args.steps, 10 * args.steps, 16 * args.steps, 0]
-    log(f"  generate: {wall:.3f} s wall; launches sd_or_step/flash_mha_eod/"
-        f"geglu_ffn_block/fused_sde_step = {launches} (want {want})")
-    if launches != want:
-        raise AssertionError(f"launch counts {launches} != {want}")
+    out, counts, wall = counted_generate(sd, mod, "or", cfg, 8, args.seed, decode=True)
+    log(f"  generate: {wall:.3f} s wall")
+    expect_counts(f"512 px or, {args.steps} steps", counts, sd_or_step=args.steps,
+                  flash_mha_eod=10 * args.steps, geglu_ffn_block=16 * args.steps)
+    launches.update({k: counts[k] for k in ("sd_or_step", "flash_mha_eod", "geglu_ffn_block")})
     lat, kappa, img = out["latents"], out["traces"]["kappa"], out["images"]
     if lat.shape != (8, 64, 64, 4) or not torch.isfinite(lat).all():
         raise AssertionError(f"latents {tuple(lat.shape)} not finite/shaped")
@@ -580,31 +962,36 @@ def main(argv=None) -> int:
     log(f"  latents |x|max {lat.abs().max().item():.4f}; kappa last step "
         f"{[round(v, 6) for v in kappa[-1].tolist()]}; images {tuple(img.shape)} uint8 "
         f"mean {img.float().mean().item():.3f}")
-    ctxs = sd.prepare_contexts(mod, "or", *prompts, 8)
+    ctxs = sd.prepare_contexts(mod, "or", *PROMPTS, 8)
     sampler = sd.make_sampler(mod, "or", cfg)
-    gen = torch.Generator(device=dev).manual_seed(args.seed)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    x, _ = sampler(*ctxs, generator=gen)
-    float(x.sum())
-    step_ms = (time.perf_counter() - t0) * 1e3 / args.steps
+    step_ms, peak = timed_sampler(sd, mod, "or", cfg, 8, args.seed, dev)
     log(f"  sampler: {step_ms:.3f} ms per step (UNet forward at context batch 24 + "
-        f"OR epilogue), peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    del out, lat, img, x
+        f"OR epilogue), peak memory {peak:.2f} GiB")
+    del out, lat, img
+    torch.cuda.empty_cache()
+
+    log("phase 3b: SD-1.x, or, 768 px, latent batch 8, 2 steps")
+    counts = sd_768_phase(sd, mod, args, dev)
+    launches.update({k: counts[k] for k in ("_kernel", "_kernel_mh")})
+
+    log("phase 3c: SD-1.x, or, 512 px under attn_impl flash_eo / flash and every _LONG_IMPL")
+    launches.update(sd_attn_impl_phase(sd, mod, args, dev))
+
+    log("phase 3d: the other methods at 512 px")
+    sd_methods_phase(sd, mod, args, dev)
     torch.cuda.empty_cache()
 
     log(f"phase 4: CIFAR joint sampler (vpsdeA, 2 models, batch 100, sde/or, "
         f"{args.cifar_steps} steps)")
-    for fn in wrappers:
-        fn.launches = 0
-    launches[3], models, cifar_cfg, labels = cifar_phase(dev, args)
-    others = [fn.launches for fn in wrappers[:3]]
-    if others != [0, 0, 0]:
+    zero_counts()
+    launches["fused_sde_step"], models, cifar_cfg, labels = cifar_phase(dev, args)
+    others = {k: v for k, v in read_counts().items() if v and k != "fused_sde_step"}
+    if others:
         raise AssertionError(f"the CIFAR path launched SD kernels: {others}")
 
     log("phase 5: profiles and CPU references")
     profile_step(sampler, ctxs, dev)
+    sd_768_profile(sd, mod, args, dev)
     unet_reference_check(mod, dev)
     del mod, sampler, ctxs
     torch.cuda.empty_cache()
@@ -612,7 +999,7 @@ def main(argv=None) -> int:
     score_unet_reference_check(models[0], cifar_cfg, dev)
 
     log(card)
-    print(json.dumps({"kernels": [c.row(n) for c, n in zip(checks, launches)]}), flush=True)
+    print(json.dumps({"kernels": [c.row(launches[n]) for n, c in checks.items()]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

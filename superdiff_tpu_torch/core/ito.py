@@ -94,6 +94,18 @@ def dlogq_ode_vp(sscores, divs, x, dx, t, dt, schedule, score_eps: float = 1e-3)
     return (dt * div + _fsum(grad_logq * (dx[None] + dt * vf), _event_dims(vf))).T
 
 
+def dlogq_ode_sigma_space(vels, divs, vf_mixed, sigma, dsigma):
+    """Continuity-equation ``dlog q_i`` in sigma-space:
+
+      dll_i = dsigma * ( div_i - < -v_i / sigma, v_i - vf_mixed > )
+
+    with ``div_i`` in the reference's sign (``-(probe * jvp).sum``).
+    vels (N, B, *event), divs (N, B), vf_mixed (B, *event); returns (B, N).
+    """
+    corr = _fsum((-vels / sigma) * (vels - vf_mixed[None]), _event_dims(vels))
+    return (dsigma * (divs - corr)).T
+
+
 def renormalize_logq(logq: torch.Tensor) -> torch.Tensor:
     """Subtract the per-sample max across models (``dynamics.py:94``); the OR
     softmax is invariant to the shift."""

@@ -11,12 +11,20 @@ Submodules carry the Flax module names (``down_0_res_0``, ``mid_attn``,
 dtype (the JAX modules cast their fp32 params at every use); norm params and
 the subpixel upsampler's 3x3 taps stay fp32.
 
-Routing matches the JAX defaults (``attn_impl="flash_eod"``,
-``ffn_impl="fused"``, ``upsample_impl="subpixel"``): self-attention over
-more than 256 tokens goes through :func:`flash_mha_eod`; the 256- and
-64-token self-attention and the 77-token cross-attention stay plain fp32
-softmax einsum, as the JAX package sends them to its einsum reference; every
-FFN sub-block is :func:`geglu_ffn_block`.
+Attention routes by ``SDUNetConfig.attn_impl`` as in the JAX package
+(default ``"flash_eod"``): self-attention over more than 256 tokens goes
+through :func:`flash_mha_eod` (``flash_eod``, d-major projections) or
+:func:`flash_mha_bhld` (``flash_eo``, (B,H,L,D) projections); every other
+row of the flash family (``flash`` everywhere; the short self-attention rows
+and the 77-token cross-attention of ``flash_eo`` / ``flash_eod``) through
+:func:`flash_mha`, which sends kv <= 256 to plain attention. Which kernel a
+row reaches is those entries' dispatch: at 512 px the 4096- and 1024-token
+rows, at 768 px the 9216-token rows (online softmax), the 2304-token rows
+(d-major) and the 576-token rows (head dim 160). ``einsum`` is the explicit
+fp32 softmax and ``dpa`` one ``scaled_dot_product_attention`` call (no TPU
+kernel in JAX either); ``flash_nat`` raises (ROADMAP.md B7). Every FFN
+sub-block is :func:`geglu_ffn_block`: the JAX ``ffn_impl`` lever is not
+carried, the port is fused only. ``upsample_impl`` as in JAX.
 
 **Conditioning dedup**: when ``context.shape[0]`` is a multiple g of the
 latent batch, the latents are shared by g conditioning groups (group-major).
@@ -34,7 +42,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ...ops.flash_attention import flash_mha_eod
+from ...ops.flash_attention import flash_mha, flash_mha_bhld, flash_mha_eod
 from ...ops.geglu_ffn import geglu_ffn_block
 from ..unet import GroupNorm32, LayerNorm32
 
@@ -46,6 +54,9 @@ def sd_timestep_embedding(t: torch.Tensor, dim: int, max_period: float = 10_000.
     freqs = torch.exp(-log_max * torch.arange(half, dtype=torch.float32) / half)
     args = t.float().reshape(-1, 1) * freqs.to(t.device)[None]
     return torch.cat([torch.cos(args), torch.sin(args)], dim=-1)
+
+
+ATTN_IMPLS = ("flash_eod", "flash_eo", "flash", "einsum", "dpa")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -68,6 +79,17 @@ class SDUNetConfig:
     # 'subpixel': one 2x2 conv with 4x the channels on the small grid plus a
     # phase interleave; 'repeat': nearest 2x repeat + 3x3 conv. Same params.
     upsample_impl: str = "subpixel"
+    # attention kernel selection, see the module docstring. The FFN is
+    # always the fused kernel (no ``ffn_impl``).
+    attn_impl: str = "flash_eod"
+
+    def __post_init__(self):
+        if self.attn_impl == "flash_nat":
+            raise NotImplementedError(
+                "attn_impl='flash_nat' needs the packed-layout kernel "
+                "(_kernel_mh_nat), which is not ported: ROADMAP.md B7")
+        if self.attn_impl not in ATTN_IMPLS:
+            raise ValueError(f"attn_impl {self.attn_impl!r}; one of {ATTN_IMPLS}")
 
     @staticmethod
     def tiny() -> "SDUNetConfig":
@@ -84,13 +106,15 @@ def _linear(i, o, dtype, bias=True):
 
 
 class CrossAttention(nn.Module):
-    """Multi-head attention; self-attention when ``context`` is None."""
+    """Multi-head attention; self-attention when ``context`` is None.
+    ``attn_impl`` as in :class:`SDUNetConfig`."""
 
     def __init__(self, query_dim: int, heads: int, context_dim: Optional[int] = None,
-                 dtype=torch.bfloat16):
+                 dtype=torch.bfloat16, attn_impl: str = "flash_eod"):
         super().__init__()
         ctx_dim = context_dim or query_dim
         self.heads = heads
+        self.attn_impl = attn_impl
         self.to_q = _linear(query_dim, query_dim, dtype, bias=False)
         self.to_k = _linear(ctx_dim, query_dim, dtype, bias=False)
         self.to_v = _linear(ctx_dim, query_dim, dtype, bias=False)
@@ -101,24 +125,35 @@ class CrossAttention(nn.Module):
         b, l, c = x.shape
         nh = self.heads
         hd = c // nh
-        if context is None and l > 256:
-            # long self-attention rows: one packed projection into the
-            # kernel's d-major layout (q, v (B,H,D,L); k a (B,H,L,D) view)
+        impl = self.attn_impl
+        if context is None and impl != "einsum":
+            # self-attention: one packed projection, split per head
             w = torch.cat([self.to_q.weight, self.to_k.weight, self.to_v.weight])
-            qkv = F.linear(x, w).view(b, l, 3, nh, hd)
-            qt = qkv[:, :, 0].permute(0, 2, 3, 1).contiguous()
-            k = qkv[:, :, 1].permute(0, 2, 1, 3)
-            vt = qkv[:, :, 2].permute(0, 2, 3, 1).contiguous()
-            ot = flash_mha_eod(qt, k, vt)
-            return self.to_out(ot.permute(0, 3, 1, 2).reshape(b, l, c))
-        ctx = x if context is None else context.to(x.dtype)
-        q = self.to_q(x).view(b, l, nh, hd)
-        k = self.to_k(ctx).view(b, -1, nh, hd)
-        v = self.to_v(ctx).view(b, -1, nh, hd)
-        logits = torch.einsum("bqhd,bkhd->bhqk", q, k).float()
-        attn = torch.softmax(logits * hd**-0.5, dim=-1).to(v.dtype)
-        out = torch.einsum("bhqk,bkhd->bqhd", attn, v).reshape(b, l, c)
-        return self.to_out(out)
+            q, k, v = F.linear(x, w).view(b, l, 3, nh, hd).unbind(2)
+        else:
+            ctx = x if context is None else context.to(x.dtype)
+            q = self.to_q(x).view(b, l, nh, hd)
+            k = self.to_k(ctx).view(b, -1, nh, hd)
+            v = self.to_v(ctx).view(b, -1, nh, hd)
+        long_self = context is None and l > 256
+        if impl == "flash_eod" and long_self:
+            # the kernel's d-major layout: q, v (B,H,D,L); k a (B,H,L,D) view
+            ot = flash_mha_eod(q.permute(0, 2, 3, 1).contiguous(), k.permute(0, 2, 1, 3),
+                               v.permute(0, 2, 3, 1).contiguous())
+            out = ot.permute(0, 3, 1, 2)
+        elif impl == "flash_eo" and long_self:
+            # (B,H,L,D) views of the packed projection, taken as they are
+            out = flash_mha_bhld(*(a.permute(0, 2, 1, 3) for a in (q, k, v))).permute(0, 2, 1, 3)
+        elif impl.startswith("flash"):
+            out = flash_mha(q, k, v)
+        elif impl == "dpa":
+            out = F.scaled_dot_product_attention(
+                *(a.transpose(1, 2) for a in (q, k, v))).transpose(1, 2)
+        else:
+            logits = torch.einsum("bqhd,bkhd->bhqk", q, k).float()
+            attn = torch.softmax(logits * hd**-0.5, dim=-1).to(v.dtype)
+            out = torch.einsum("bhqk,bkhd->bqhd", attn, v)
+        return self.to_out(out.reshape(b, l, c))
 
 
 class _GEGLUProj(nn.Module):
@@ -133,12 +168,13 @@ class _GEGLUProj(nn.Module):
 class TransformerBlock(nn.Module):
     """Self-attn -> cross-attn -> fused LN + GEGLU FFN, pre-norm residuals."""
 
-    def __init__(self, dim: int, heads: int, context_dim: int, dtype=torch.bfloat16):
+    def __init__(self, dim: int, heads: int, context_dim: int, dtype=torch.bfloat16,
+                 attn_impl: str = "flash_eod"):
         super().__init__()
         self.norm1 = LayerNorm32(dim)
-        self.attn1 = CrossAttention(dim, heads, dtype=dtype)
+        self.attn1 = CrossAttention(dim, heads, dtype=dtype, attn_impl=attn_impl)
         self.norm2 = LayerNorm32(dim)
-        self.attn2 = CrossAttention(dim, heads, context_dim, dtype=dtype)
+        self.attn2 = CrossAttention(dim, heads, context_dim, dtype=dtype, attn_impl=attn_impl)
         self.norm3 = LayerNorm32(dim)
         self.ff_geglu = _GEGLUProj(dim, 4 * dim, dtype)
         self.ff_out = _linear(4 * dim, dim, dtype)
@@ -158,12 +194,13 @@ class TransformerBlock(nn.Module):
 class SpatialTransformer(nn.Module):
     """GroupNorm -> proj_in -> transformer block -> proj_out, residual."""
 
-    def __init__(self, channels: int, heads: int, context_dim: int, dtype=torch.bfloat16):
+    def __init__(self, channels: int, heads: int, context_dim: int, dtype=torch.bfloat16,
+                 attn_impl: str = "flash_eod"):
         super().__init__()
         # diffusers Transformer2DModel input GroupNorm uses eps 1e-6
         self.norm = GroupNorm32(channels, eps=1e-6)
         self.proj_in = _linear(channels, channels, dtype)
-        self.block_0 = TransformerBlock(channels, heads, context_dim, dtype)
+        self.block_0 = TransformerBlock(channels, heads, context_dim, dtype, attn_impl)
         self.proj_out = _linear(channels, channels, dtype)
 
     def forward(self, x: torch.Tensor, context: torch.Tensor) -> torch.Tensor:
@@ -261,7 +298,7 @@ class SDUNet(nn.Module):
                 ch = out_ch
                 if block_type == "CrossAttnDownBlock2D":
                     self.add_module(f"down_{i}_attn_{j}",
-                                    SpatialTransformer(ch, heads, ctx_dim, dtype))
+                                    SpatialTransformer(ch, heads, ctx_dim, dtype, cfg.attn_impl))
                 skips.append(ch)
             if i != n - 1:
                 # symmetric stride-2 padding, as torch's Downsample2D
@@ -269,7 +306,7 @@ class SDUNet(nn.Module):
                                 nn.Conv2d(ch, ch, 3, stride=2, padding=1, dtype=dtype))
                 skips.append(ch)
         self.mid_res_0 = ResnetBlock2D(ch, ch, temb_ch, dtype)
-        self.mid_attn = SpatialTransformer(ch, heads, ctx_dim, dtype)
+        self.mid_attn = SpatialTransformer(ch, heads, ctx_dim, dtype, cfg.attn_impl)
         self.mid_res_1 = ResnetBlock2D(ch, ch, temb_ch, dtype)
         for i, block_type in enumerate(cfg.up_block_types):
             out_ch = cfg.block_out_channels[n - 1 - i]
@@ -279,7 +316,7 @@ class SDUNet(nn.Module):
                 ch = out_ch
                 if block_type == "CrossAttnUpBlock2D":
                     self.add_module(f"up_{i}_attn_{j}",
-                                    SpatialTransformer(ch, heads, ctx_dim, dtype))
+                                    SpatialTransformer(ch, heads, ctx_dim, dtype, cfg.attn_impl))
             if i != n - 1:
                 self.add_module(f"up_{i}_upsample", SubpixelUpsample(ch, ch))
         self.norm_out = GroupNorm32(ch)

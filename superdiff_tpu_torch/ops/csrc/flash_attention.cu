@@ -251,9 +251,10 @@ int launch(const void* qt, const void* k, const void* vt, void* out, int B, int 
 
 }  // namespace
 
-// Head dims this library is instantiated for (SD-1.x's long rows); the
-// wrapper raises on others.
-extern "C" int attn_eod_supports(int D) { return D == 40 || D == 80; }
+// Head dims this library is instantiated for (SD-1.x: 320/8, 640/8, 1280/8;
+// D = 160 takes 130 KB of dynamic shared memory, under the opt-in attribute
+// that launch<D> sets); the wrapper raises on others.
+extern "C" int attn_eod_supports(int D) { return D == 40 || D == 80 || D == 160; }
 
 // kv tile: L must be a multiple of it.
 extern "C" int attn_eod_tile() { return kBK; }
@@ -265,6 +266,7 @@ extern "C" int attn_eod_launch(const void* qt, const void* k, const void* vt, vo
   switch (D) {
     case 40: return launch<40>(qt, k, vt, out, B, H, L, k_sb, k_sh, k_sl, scale, s);
     case 80: return launch<80>(qt, k, vt, out, B, H, L, k_sb, k_sh, k_sl, scale, s);
+    case 160: return launch<160>(qt, k, vt, out, B, H, L, k_sb, k_sh, k_sl, scale, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

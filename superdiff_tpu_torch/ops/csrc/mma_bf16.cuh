@@ -66,4 +66,15 @@ __device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* smem) 
                : "r"(s));
 }
 
+// Two 8x8 b16 matrices from shared memory, each transposed on the way: lanes
+// 0-7 give the row addresses of matrix 0, lanes 8-15 those of matrix 1. For
+// a row-major (k, n) slab, register j of lane (g, t) then holds
+// (k 2t..2t+1, n g) of matrix j: the B fragment of mma.m16n8k16.
+__device__ __forceinline__ void ldmatrix_x2_trans(uint32_t (&r)[2], const void* smem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1])
+               : "r"(s));
+}
+
 }  // namespace sdt

@@ -1,16 +1,43 @@
-"""Long-row softmax attention in the d-major ('eod') layout.
+"""Softmax attention for the SD UNet: the three entry points of
+``superdiff_tpu/ops/pallas/flash_attention.py`` and their dispatch.
 
-Port of ``flash_mha_eod`` from ``superdiff_tpu/ops/pallas/flash_attention.py``:
-q, v and the output live in (B, H, D, L), k in (B, H, L, D). The SD UNet
-routes its long self-attention rows (the 4096- and 1024-token layers) here;
-the short rows (256- and 64-token self-attention, 77-token cross-attention)
-stay plain PyTorch, as the JAX package sends them to its einsum reference.
+* :func:`flash_mha` on (B, L, H, D), the UNet's native layout;
+* :func:`flash_mha_bhld` on (B, H, L, D), the ``flash_eo`` entry;
+* :func:`flash_mha_eod` with q, v and the output in the d-major (B, H, D, L)
+  layout and k in (B, H, L, D), the ``flash_eod`` entry.
 
-The Hopper kernel is ``csrc/flash_attention.cu``. ``flash_mha_eod`` launches
-it for CUDA tensors (bf16, head dims 40/80, L a multiple of 64; anything
-else raises) and runs :func:`_reference_eod` for CPU tensors. Forward-mode
-derivatives route through :func:`_reference_eod`, as JAX's ``_flash_eod_jvp``
-does.
+Which kernel a shape reaches is decided as in the JAX package, block-size
+rules included (``block_k`` is the whole row up to 1024 kv tokens, else
+``min(4096, lk)`` halved until it divides; ``block_q`` halved until it
+divides), and is named after the TPU kernel it replaces:
+
+==========================  ===============================================
+kv <= 256                   plain PyTorch (:func:`_reference`), as in JAX
+one kv block, kv <= 1024    ``_kernel_mh``
+one kv block, kv > 1024     ``_LONG_IMPL``: ``1block`` -> ``_kernel_1block``,
+                            ``mxsum`` -> ``_kernel_1block_mxsum``, ``pipe2/4``
+                            -> ``_make_pipe_kernel``, ``pvt1/2/4`` ->
+                            ``_make_pvt_kernel``
+several kv blocks           ``_kernel`` (online softmax)
+``flash_mha_eod``           ``_make_pvtd_kernel`` for 256 < kv <= 4096 when
+                            the q block is a multiple of 128 per chain, else
+                            it hands over to ``flash_mha_bhld``
+==========================  ===============================================
+
+The Hopper kernels are ``csrc/flash_attention.cu`` (d-major) and
+``csrc/flash_attention_bhld.cu`` (one kernel in three modes: single block
+with the row sum of the fp32 p, single block with the row sum of the bf16 p,
+online softmax). A CUDA tensor is launched or raises (bf16, head dims 40 /
+80 / 160, kv a multiple of 64, rows 16-byte aligned with unit stride along
+D); a CPU tensor takes the kernel's plain PyTorch version, which rounds
+where the TPU body rounds. Forward-mode derivatives go through
+:func:`_reference_bhld` / :func:`_reference_eod`, as the JAX ``custom_jvp``
+rules do. The levers ``_CROSS_IMPL = "nat" | "xpk"`` and
+``native_long_kv=True`` (the packed-layout kernels) raise: ROADMAP.md B7.
+
+Launches are counted per TPU-kernel name: ``flash_mha_bhld.launches`` (a
+dict, shared with ``flash_mha``) and ``flash_mha_eod.launches`` (the d-major
+kernel, ``_make_pvtd_kernel``).
 """
 
 from __future__ import annotations
@@ -28,6 +55,51 @@ _SIGNATURES = {
     "attn_eod_tile": (_ci, []),
     "attn_eod_launch": (_ci, [_vp] * 4 + [_ci] * 4 + [_cl] * 3 + [_cf, _vp]),
 }
+_SIGNATURES_BHLD = {
+    "attn_bhld_supports": (_ci, [_ci]),
+    "attn_bhld_tile": (_ci, []),
+    "attn_bhld_launch": (_ci, [_vp] * 4 + [_ci] * 5 + [_vp, _cf, _ci, _vp]),
+}
+
+# Module-level levers, as in the JAX module (its tests and sweeps select
+# kernels through them).
+_LONG_IMPL = "pvt1"    # single-kv-block kernel for kv > _MH_MAX_KV
+_LONG_BLOCK_Q = 2048   # q block of the long rows
+_MH_MAX_KV = 1024      # kv ceiling of _kernel_mh
+_CROSS_IMPL = "einsum"  # kv <= 256: plain attention; "nat" / "xpk" raise
+_EOD_CHAINS_LONG, _EOD_BLOCK_Q = 2, 4096     # pvtd2 for kv > 1024
+_EOD_CHAINS_MID, _EOD_BLOCK_Q_MID = 1, 2048  # pvtd1 for kv <= 1024
+
+# _LONG_IMPL -> (TPU kernel, where its row sum comes from)
+_LONG_KERNELS = {
+    "1block": ("_kernel_1block", "fp32"),
+    "mxsum": ("_kernel_1block_mxsum", "bf16"),
+    "pipe2": ("_make_pipe_kernel", "bf16"),
+    "pipe4": ("_make_pipe_kernel", "bf16"),
+    "pvt1": ("_make_pvt_kernel", "bf16"),
+    "pvt2": ("_make_pvt_kernel", "bf16"),
+    "pvt4": ("_make_pvt_kernel", "bf16"),
+}
+_SUM_OF = {"_kernel_mh": "fp32", **dict(_LONG_KERNELS.values())}
+_MODES = {"fp32": 0, "bf16": 1, "online": 2}
+
+_B7 = "the packed-layout kernels (_kernel_mh_nat, _kernel_cross_packed) are not ported: ROADMAP.md B7"
+
+
+# --- plain PyTorch versions --------------------------------------------------
+
+def _reference(q, k, v, sm_scale: float):
+    """Plain attention, (B, L, H, D) layout, fp32 softmax."""
+    logits = torch.einsum("bqhd,bkhd->bhqk", q, k).float() * sm_scale
+    attn = torch.softmax(logits, dim=-1).to(v.dtype)
+    return torch.einsum("bhqk,bkhd->bqhd", attn, v)
+
+
+def _reference_bhld(q, k, v, sm_scale: float):
+    """Plain attention staying in (B, H, L, D)."""
+    logits = torch.einsum("bhqd,bhkd->bhqk", q, k).float() * sm_scale
+    attn = torch.softmax(logits, dim=-1).to(v.dtype)
+    return torch.einsum("bhqk,bhkd->bhqd", attn, v)
 
 
 def _reference_eod(qt, k, vt, sm_scale: float):
@@ -38,6 +110,128 @@ def _reference_eod(qt, k, vt, sm_scale: float):
     return torch.einsum("bhqk,bhdk->bhdq", attn, vt)
 
 
+def _scores(q, k, sm_scale):
+    """Base-2 logits as the kernels form them: q scaled by
+    ``sm_scale * log2 e`` in its own dtype, products accumulated in fp32."""
+    qs = q * torch.tensor(sm_scale * LOG2_E, dtype=q.dtype, device=q.device)
+    return qs.float() @ k.float().transpose(-1, -2)
+
+
+def _plain_1block(q, k, v, sm_scale: float, sum: str = "fp32"):
+    """Single-kv-block attention on (B, H, L, D), step by step as the TPU
+    bodies: p = exp2(s - row max); ``sum="fp32"`` adds p before it is cast
+    to v's dtype (``_kernel_1block``, ``_kernel_mh``), ``sum="bf16"`` after
+    (``mxsum``, ``pipe``, ``pvt``); P.V from the cast p, fp32 accumulation,
+    one divide."""
+    s = _scores(q, k, sm_scale)
+    p = torch.exp2(s - s.amax(-1, keepdim=True))
+    pc = p.to(v.dtype)
+    l = (p if sum == "fp32" else pc.float()).sum(-1, keepdim=True)
+    return ((pc.float() @ v.float()) / l).to(q.dtype)
+
+
+def _plain_multiblock(q, k, v, sm_scale: float, block_q: int, block_k: int):
+    """Online-softmax attention on (B, H, L, D), following ``_kernel``'s loop
+    over kv blocks of ``block_k``: running max m, sum l of the fp32 p and
+    fp32 acc, both rescaled by ``exp2(m_prev - m_next)``; p cast to v's dtype
+    for P.V. (``block_q`` only cuts the rows into independent programs.)"""
+    lk = k.shape[2]
+    outs = []
+    for qb in q.split(block_q, dim=2):
+        m = torch.full(qb.shape[:3] + (1,), -1e30, dtype=torch.float32, device=q.device)
+        l = torch.zeros_like(m)
+        acc = torch.zeros(qb.shape, dtype=torch.float32, device=q.device)
+        for j in range(0, lk, block_k):
+            s = _scores(qb, k[:, :, j:j + block_k], sm_scale)
+            m_next = torch.maximum(m, s.amax(-1, keepdim=True))
+            alpha = torch.exp2(m - m_next)
+            p = torch.exp2(s - m_next)
+            l = alpha * l + p.sum(-1, keepdim=True)
+            acc = acc * alpha + p.to(v.dtype).float() @ v[:, :, j:j + block_k].float()
+            m = m_next
+        outs.append((acc / l).to(q.dtype))
+    return torch.cat(outs, dim=2)
+
+
+def _plain(name, q, k, v, sm_scale, block_q, block_k):
+    """The plain version of the kernel called ``name``."""
+    if name == "_kernel":
+        return _plain_multiblock(q, k, v, sm_scale, block_q, block_k)
+    return _plain_1block(q, k, v, sm_scale, _SUM_OF[name])
+
+
+# --- dispatch ----------------------------------------------------------------
+
+def _blocks(lq: int, lk: int, block_q, block_k):
+    """The q and kv block sizes the JAX entries settle on."""
+    block_q = block_q or min(_LONG_BLOCK_Q if lk > 1024 else 512, lq)
+    # kv <= 1024: the whole row is the kv block, whatever the caller asked
+    block_k = lk if lk <= 1024 else (block_k or min(4096, lk))
+    while lq % block_q:
+        block_q //= 2
+    while lk % block_k:
+        block_k //= 2
+    return block_q, block_k
+
+
+def _tiles(block_q: int, block_k: int, lk: int) -> bool:
+    """False where the JAX entries give the sequence to the plain version."""
+    return block_q >= 8 and (block_k >= 128 or block_k == lk)
+
+
+def _kernel_name(lk: int, block_k: int) -> str:
+    """The TPU kernel ``_flash_impl`` picks for these kv blocks."""
+    if lk // block_k > 1:
+        return "_kernel"
+    if lk <= _MH_MAX_KV:
+        return "_kernel_mh"
+    return _LONG_KERNELS[_LONG_IMPL][0]
+
+
+# --- kernel launches ---------------------------------------------------------
+
+def _check_bf16(what, *tensors):
+    if any(t.dtype != torch.bfloat16 for t in tensors):
+        raise ValueError(f"{what}: the kernel takes bf16 q, k, v")
+
+
+def _row_view(what, t):
+    """``t`` as the kernel takes it: unit stride along D (one copy where it
+    is not), rows 16-byte aligned; raises otherwise."""
+    if t.stride(-1) != 1:
+        t = t.contiguous()
+    if any(s % 8 for s in t.stride()[:3]) or t.data_ptr() % 16:
+        raise ValueError(f"{what}: rows must be 16-byte aligned, got strides {t.stride()}")
+    return t
+
+
+def _launch_bhld(q, k, v, sm_scale, name):
+    what = f"flash_mha_bhld[{name}]"
+    _build.require_cuda(what, q, k, v)
+    b, h, lq, d = q.shape
+    lk = k.shape[2]
+    if k.shape != (b, h, lk, d) or v.shape != k.shape:
+        raise ValueError(f"{what}: q (B,H,Lq,D), k and v (B,H,Lk,D); got "
+                         f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
+    _check_bf16(what, q, k, v)
+    lib = _build.load("flash_attention_bhld", _SIGNATURES_BHLD)
+    tile = lib.attn_bhld_tile()
+    if not lib.attn_bhld_supports(d) or lk % tile:
+        raise ValueError(f"{what}: kernel takes head_dim 40, 80 or 160 and kv a "
+                         f"multiple of {tile}; got D={d}, kv={lk}")
+    q, k, v = (_row_view(what, t) for t in (q, k, v))
+    out = torch.empty((b, h, lq, d), dtype=q.dtype, device=q.device)
+    strides = (ctypes.c_longlong * 12)(*(s for t in (q, k, v, out) for s in t.stride()[:3]))
+    mode = _MODES["online" if name == "_kernel" else _SUM_OF[name]]
+    p = _build.ptr
+    err = lib.attn_bhld_launch(p(q), p(k), p(v), p(out), b, h, d, lq, lk,
+                               ctypes.cast(strides, _vp), float(sm_scale * LOG2_E), mode,
+                               _build.stream_ptr(q))
+    _build.check(err, what)
+    flash_mha_bhld.launches[name] += 1
+    return out
+
+
 def _launch(qt, k, vt, sm_scale):
     _build.require_cuda("flash_mha_eod", qt, k, vt)
     b, h, d, l = qt.shape
@@ -45,15 +239,14 @@ def _launch(qt, k, vt, sm_scale):
         raise ValueError(
             f"flash_mha_eod: self-attention shapes qt/vt (B,H,D,L), k (B,H,L,D); "
             f"got {tuple(qt.shape)}, {tuple(k.shape)}, {tuple(vt.shape)}")
-    if any(t.dtype != torch.bfloat16 for t in (qt, k, vt)):
-        raise ValueError("flash_mha_eod: the kernel takes bf16 q, k, v")
+    _check_bf16("flash_mha_eod", qt, k, vt)
     if not (qt.is_contiguous() and vt.is_contiguous()):
         raise ValueError("flash_mha_eod: qt and vt must be contiguous (B,H,D,L)")
     lib = _build.load("flash_attention", _SIGNATURES)
     tile = lib.attn_eod_tile()
     if not lib.attn_eod_supports(d) or l % tile:
         raise ValueError(
-            f"flash_mha_eod: kernel takes head_dim 40 or 80 and L a "
+            f"flash_mha_eod: kernel takes head_dim 40, 80 or 160 and L a "
             f"multiple of {tile}; got D={d}, L={l}")
     sb, sh, sl, sd = k.stride()
     if sd != 1 or sb % 8 or sh % 8 or sl % 8 or k.data_ptr() % 16:
@@ -68,6 +261,35 @@ def _launch(qt, k, vt, sm_scale):
     return out
 
 
+def _jvp_through(reference, ctx, tangents):
+    primals = ctx.saved_tensors
+    tangents = tuple(torch.zeros_like(p) if t is None else t
+                     for p, t in zip(primals, tangents))
+    _, out_t = torch.func.jvp(lambda a, b, c: reference(a, b, c, ctx.sm_scale),
+                              primals, tangents)
+    return out_t
+
+
+class _FlashBhld(torch.autograd.Function):
+    """Kernel (CUDA) or its plain version (CPU) forward on (B, H, L, D);
+    tangents through :func:`_reference_bhld`."""
+
+    @staticmethod
+    def forward(q, k, v, sm_scale, block_q, block_k, name):
+        if q.is_cuda:
+            return _launch_bhld(q, k, v, sm_scale, name)
+        return _plain(name, q, k, v, sm_scale, block_q, block_k)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.save_for_forward(*inputs[:3])
+        ctx.sm_scale = inputs[3]
+
+    @staticmethod
+    def jvp(ctx, q_t, k_t, v_t, *_):
+        return _jvp_through(_reference_bhld, ctx, (q_t, k_t, v_t))
+
+
 class _FlashEod(torch.autograd.Function):
     """Kernel (CUDA) or reference (CPU) forward; tangents through the
     reference."""
@@ -80,26 +302,78 @@ class _FlashEod(torch.autograd.Function):
 
     @staticmethod
     def setup_context(ctx, inputs, output):
-        qt, k, vt, sm_scale = inputs
-        ctx.save_for_forward(qt, k, vt)
-        ctx.sm_scale = sm_scale
+        ctx.save_for_forward(*inputs[:3])
+        ctx.sm_scale = inputs[3]
 
     @staticmethod
     def jvp(ctx, qt_t, k_t, vt_t, _):
-        qt, k, vt = ctx.saved_tensors
-        tangents = tuple(torch.zeros_like(p) if t is None else t
-                         for p, t in zip((qt, k, vt), (qt_t, k_t, vt_t)))
-        _, out_t = torch.func.jvp(
-            lambda a, b, c: _reference_eod(a, b, c, ctx.sm_scale),
-            (qt, k, vt), tangents)
-        return out_t
+        return _jvp_through(_reference_eod, ctx, (qt_t, k_t, vt_t))
 
 
-def flash_mha_eod(qt, k, vt, *, sm_scale: float | None = None):
-    """softmax(q k^T * sm_scale) v with qt/vt/out (B, H, D, L), k (B, H, L, D)."""
+# --- entry points ------------------------------------------------------------
+
+def flash_mha_bhld(q, k, v, *, sm_scale: float | None = None,
+                   block_q: int | None = None, block_k: int | None = None):
+    """softmax(q k^T * sm_scale) v on tensors already in (B, H, L, D): the
+    ``flash_eo`` entry. Same kernels and dispatch as :func:`flash_mha`, but
+    kv <= 256 goes to a kernel too, as in JAX; the plain version when the
+    sequence does not tile."""
+    d = q.shape[3]
+    lq, lk = q.shape[2], k.shape[2]
     if sm_scale is None:
-        sm_scale = qt.shape[2] ** -0.5
+        sm_scale = d ** -0.5
+    block_q, block_k = _blocks(lq, lk, block_q, block_k)
+    if not _tiles(block_q, block_k, lk):
+        return _reference_bhld(q, k, v, sm_scale)
+    return _FlashBhld.apply(q, k, v, float(sm_scale), block_q, block_k,
+                            _kernel_name(lk, block_k))
+
+
+def flash_mha(q, k, v, *, sm_scale: float | None = None, block_q: int | None = None,
+              block_k: int | None = None, native_long_kv: bool = False):
+    """softmax(q k^T * sm_scale) v on (B, L, H, D). kv <= 256 is plain
+    attention; 256 < kv <= 1024 the single-pass kernel; longer kv in one
+    block (up to 4096) the ``_LONG_IMPL`` kernel; several kv blocks the
+    online-softmax kernel. A caller's ``block_k`` only takes effect above
+    1024 kv tokens. The plain version when the sequence does not tile."""
+    if native_long_kv:
+        raise NotImplementedError(f"native_long_kv: {_B7}")
+    d = q.shape[3]
+    lq, lk = q.shape[1], k.shape[1]
+    if sm_scale is None:
+        sm_scale = d ** -0.5
+    block_q, block_k = _blocks(lq, lk, block_q, block_k)
+    if not _tiles(block_q, block_k, lk):
+        return _reference(q, k, v, sm_scale)
+    if block_k == lk and lk <= 256:
+        if _CROSS_IMPL != "einsum":
+            raise NotImplementedError(f"_CROSS_IMPL={_CROSS_IMPL!r}: {_B7}")
+        return _reference(q, k, v, sm_scale)
+    out = _FlashBhld.apply(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                           float(sm_scale), block_q, block_k, _kernel_name(lk, block_k))
+    return out.transpose(1, 2)
+
+
+def flash_mha_eod(qt, k, vt, *, sm_scale: float | None = None,
+                  block_q: int | None = None):
+    """softmax(q k^T * sm_scale) v with qt/vt/out (B, H, D, L), k (B, H, L, D):
+    the ``flash_eod`` entry, for one kv block of 256 < kv <= 4096. Anything
+    else (several kv blocks, short rows, a q block that is not a multiple of
+    128 per chain) transposes into :func:`flash_mha_bhld`'s dispatch."""
+    d, lq = qt.shape[2], qt.shape[3]
+    lk = k.shape[2]
+    if sm_scale is None:
+        sm_scale = d ** -0.5
+    chains, bq_default = ((_EOD_CHAINS_LONG, _EOD_BLOCK_Q) if lk > 1024
+                          else (_EOD_CHAINS_MID, _EOD_BLOCK_Q_MID))
+    block_q = block_q or min(bq_default, lq)
+    while lq % block_q:
+        block_q //= 2
+    if lk > 4096 or lk <= 256 or lk % 8 or d % 8 or block_q % (128 * chains):
+        out = flash_mha_bhld(qt.transpose(2, 3), k, vt.transpose(2, 3), sm_scale=sm_scale)
+        return out.transpose(2, 3)
     return _FlashEod.apply(qt, k, vt, float(sm_scale))
 
 
 flash_mha_eod.launches = 0
+flash_mha_bhld.launches = flash_mha.launches = {name: 0 for name in ("_kernel", *_SUM_OF)}
