@@ -12,8 +12,11 @@ Phases, in order; any failed check raises and the script exits non-zero:
    every shape the main paths give it (512 and 768 px), and hold the result
    against its plain PyTorch version on the same inputs (tolerance printed
    beside the error). The (B,H,L,D) attention kernel is checked under every
-   TPU-kernel name it stands for, in both sum modes, at head dims 40, 80 and
-   160 and 576 to 9216 tokens, its plain version looped over (b, h) slices.
+   TPU-kernel name it stands for, in all its modes, at head dims 40, 80 and
+   160 and 576 to 9216 tokens, its plain version looped over (b, h) slices;
+   the packed-layout names (``_kernel_mh_nat``, ``_kernel_cross_packed``) on
+   views of packed projections, kv from 1 to 4096 (77 for the text
+   cross-attention), the plain version looped over the batch.
    Time the kernel, the plain version and, where one exists, the single
    PyTorch call computing the same function; work out the bound.
 3. main path: SD-1.x UNet, CLIP text encoder and VAE decoder at their
@@ -38,6 +41,18 @@ Phases, in order; any failed check raises and the script exits non-zero:
    batch 8 and ``and_ode`` (1 step after a warmup, latent batch 2, beside an
    ``or`` step of that batch): finite, ``avg`` kappa fixed, ``sd_a`` moves
    ``final_ll_uncond``.
+   3e. the packed-layout paths at 512 px, latent batch 8: ``attn_impl=
+   "flash_nat"`` (2 counted steps, 32 ``_kernel_mh_nat`` launches per step
+   and no other attention kernel; then a timed run), one step each under
+   ``_CROSS_IMPL="xpk"`` (5 ``_kernel_cross_packed``, 17 ``_kernel_mh_nat``,
+   10 ``flash_mha_eod``) and ``"nat"`` (22 ``_kernel_mh_nat``, 10
+   ``flash_mha_eod``) with the default ``attn_impl``, and one 768 px step
+   under ``flash_nat`` (5 ``_kernel``, 27 ``_kernel_mh_nat``). Latents
+   finite, kappa in [0, 1]; under each lever one step's latents within
+   1e-2 of the largest latent of the same path with the packed kernels'
+   plain versions and of the default path, and one UNet forward within 5e-2
+   relative L2 of the plain versions'. The two-step distances are printed
+   (``sd_packed_phase`` says why they are not held).
 4. CIFAR joint sampler: two full-width ``vpsdeA`` ScoreUNets (36.0 M
    parameters each, bf16 compute) with drawn non-zero weights, labels tiled
    0-9, batch 100, ``--cifar-steps`` SDE/OR steps through ``make_generator``
@@ -52,13 +67,15 @@ Phases, in order; any failed check raises and the script exits non-zero:
    one 512 px SD sampler run, one 768 px step (device time by kernel family)
    and 10 CIFAR SDE/OR steps are traced with torch.profiler, and a
    64x64-latent SD UNet forward and a batch-4 ScoreUNet forward on the card
-   are each held against the same weights in fp32 on the host CPU.
+   are each held against the same weights in fp32 on the host CPU, as is a
+   full-width ``VAEEncoder`` forward at 256 px.
 
 The line before the last is the kernel table as JSON, one row per TPU kernel:
 ``launches`` over the run of the path the kernel serves (phase 3 for
 ``sd_or_step``, ``flash_mha_eod`` and ``geglu_ffn_block``, phase 3b for
 ``_kernel`` and ``_kernel_mh``, phase 3c for the ``_LONG_IMPL`` kernels,
-phase 4 for ``fused_sde_step``), ``max_abs_err`` the worst over the checked
+phase 3e for ``_kernel_mh_nat`` (``flash_nat``) and ``_kernel_cross_packed``
+(``xpk``), phase 4 for ``fused_sde_step``), ``max_abs_err`` the worst over the checked
 shapes, and ``ms`` / ``plain_ms`` / ``bound_ms`` / ``library_ms`` per step of
 that path (each of its shapes' time per launch times its launches per
 step). The card's name and power limit are on the line before it; the last
@@ -254,6 +271,8 @@ BHLD_KERNELS = {
     "_make_pipe_kernel": (157, ("pipe2", "pipe4")),
     "_make_pvt_kernel": (199, ("pvt1", "pvt2", "pvt4")),
     "_kernel_mh": (364, ()),
+    "_kernel_mh_nat": (397, ()),
+    "_kernel_cross_packed": (437, ()),
 }
 
 
@@ -337,6 +356,98 @@ def check_bhld(dev):
             c.add((b, h, l, d), err, scale, tol, ms, plain_ms, max(ops, exps, nbytes) * 1e3,
                   lib, per_step)
             del qkv, q, k, v, got, ref
+            torch.cuda.empty_cache()
+    return checks
+
+
+# (B, Lq, D, Lk, launches per step[, "neg": all-negative logits]); H = 8 but
+# on the tiny rows (B <= 2, H = 2). Cross-attention rows of the 512 px step:
+_CROSS_512 = ((24, 4096, 40, 77, 5), (24, 1024, 80, 77, 5), (24, 256, 160, 77, 5),
+              (24, 64, 160, 77, 1))
+PACKED_PLAN = {
+    "_kernel_mh_nat": (
+        ((2, 256, 40, 77, 0), (1, 200, 80, 1, 0), (1, 130, 160, 130, 0),
+         (8, 4096, 40, 4096, 1), (24, 4096, 40, 4096, 4), (24, 1024, 80, 1024, 5),
+         (24, 256, 160, 256, 5), (24, 64, 160, 64, 1)) + _CROSS_512
+        # 768 px: the rows of one kv block
+        + ((24, 2304, 80, 2304, 0), (24, 576, 160, 576, 0), (24, 144, 160, 144, 0))),
+    "_kernel_cross_packed": (
+        (2, 256, 40, 77, 0), (2, 256, 40, 77, 0, "neg"), (1, 128, 80, 128, 0),
+        (1, 130, 160, 5, 0), (24, 4096, 40, 77, 5), (24, 9216, 40, 77, 0)),
+}
+
+
+def check_packed(dev):
+    """The packed-layout modes of ``flash_attention_bhld.cu`` (``_kernel_mh_nat``,
+    ``_kernel_cross_packed``) on views of packed projections, as the UNet
+    hands them over (self-attention: one (B, L, 3, H, D) projection; cross:
+    q (B, L, H*D), k and v (B, 77, H*D)), each against its plain version
+    looped over the batch. Tiny shapes first (a partial q tile, kv 1, 77, 128
+    and 130; all-negative logits for the zero shift of ``_kernel_cross_packed``),
+    then every shape of the 512 and 768 px steps. ``per_step``: the 512 px
+    ``flash_nat`` step for ``_kernel_mh_nat``, the 512 px ``xpk`` step for
+    ``_kernel_cross_packed``."""
+    import torch
+    import torch.nn.functional as F
+
+    from superdiff_tpu_torch.ops import flash_attention as m
+
+    checks = {}
+    for name, shapes in PACKED_PLAN.items():
+        line = BHLD_KERNELS[name][0]
+        c = checks[name] = Check(
+            f"flash_mha:{name}", "superdiff_tpu_torch/ops/csrc/flash_attention_bhld.cu",
+            f"superdiff_tpu/ops/pallas/flash_attention.py:{line}",
+            "operations" if name == "_kernel_mh_nat" else "bytes")
+        for b, lq, d, lk, per_step, *neg in shapes:
+            h = 8 if b > 2 else 2
+            g = torch.Generator(device=dev).manual_seed(lq + lk + d)
+            rnd = lambda *s: torch.randn(*s, device=dev, generator=g)
+            if lq == lk:
+                q, k, v = rnd(b, lq, 3, h, d).to(torch.bfloat16).unbind(2)
+            else:
+                q = rnd(b, lq, h, d).to(torch.bfloat16)
+                k, v = (rnd(b, lk, h, d).to(torch.bfloat16) for _ in range(2))
+            if neg:
+                q, k = q.abs(), -k.abs()
+            block_q, block_k = m._blocks(lq, lk, None, None)
+            native = name == "_kernel_mh_nat"
+            m._CROSS_IMPL = "einsum" if native else "xpk"
+            if m._packed_kernel_name(lq, lk, h, block_q, block_k, native) == name:
+                run = lambda: m.flash_mha(q, k, v, native_long_kv=native)
+            elif per_step:
+                raise AssertionError(f"dispatch: {(b, lq, d, lk)} does not reach {name}")
+            else:
+                run = lambda: m._launch_packed(q, k, v, d ** -0.5, name)
+            before = m.flash_mha.launches[name]
+            got = run()
+            torch.cuda.synchronize()
+            if m.flash_mha.launches[name] != before + 1:
+                raise AssertionError(f"{name} {(b, lq, d, lk)}: the wrapper did not count a launch")
+            if not got.is_contiguous():
+                raise AssertionError(f"{name}: the output is not written packed")
+
+            def plain():
+                return torch.cat([m._plain(name, *(a[i:i + 1].transpose(1, 2) for a in (q, k, v)),
+                                           d ** -0.5, None, None).transpose(1, 2)
+                                  for i in range(b)])
+
+            ref = plain()
+            scale = ref.float().abs().max().item()
+            err = (got.float() - ref.float()).abs().max().item()
+            tol = 1.2e-2 * scale  # bf16-level, as the other attention rows
+            ms = time_ms(run, budget_ms=200)
+            m._CROSS_IMPL = "einsum"
+            plain_ms = time_once_ms(plain)
+            q_, k_, v_ = (a.transpose(1, 2).contiguous() for a in (q, k, v))
+            lib = time_ms(lambda: F.scaled_dot_product_attention(q_, k_, v_), budget_ms=200)
+            del q_, k_, v_
+            ops = 4 * b * h * lq * lk * d / PEAK_BF16
+            exps = b * h * lq * lk / PEAK_EXP2
+            nbytes = 2 * (lq + lk) * b * h * d * 2 / PEAK_BYTES
+            c.add((b, lq, h, d, lk, *neg), err, scale, tol, ms, plain_ms,
+                  max(ops, exps, nbytes) * 1e3, lib, per_step)
+            del q, k, v, got, ref
             torch.cuda.empty_cache()
     return checks
 
@@ -872,6 +983,198 @@ def sd_methods_phase(sd, mod, args, dev):
         f"{[round(v, 4) for v in out['traces']['kappa'][-1].tolist()]}")
 
 
+def sd_packed_phase(sd, mod, args, dev):
+    """The packed-layout paths at 512 px, latent batch 8: ``attn_impl=
+    "flash_nat"`` (2 counted steps, then a timed run), one step each under
+    ``_CROSS_IMPL="xpk"`` and ``"nat"`` with the default ``attn_impl``, and
+    one 768 px step under ``flash_nat``. Returns the launches of the kernels'
+    own paths (``flash_nat`` for ``_kernel_mh_nat``, ``xpk`` for
+    ``_kernel_cross_packed``).
+
+    Held, where the comparison is well conditioned: one step's latents
+    within 1e-2 of the largest latent of the same path with every
+    packed-layout kernel replaced by its plain version (which phase 2 holds
+    the kernels to at every shape), and of the default path on the same seed
+    and weights (another rounding of each attention row, which the bf16 UNet
+    carries on like its own noise, as ``1block`` in phase 3c); one UNet
+    forward within 5e-2 relative L2 of the same with the plain versions, the
+    bound phase 5 holds the bf16 UNet to against fp32. Printed beside it: the
+    forward's distance to the default path and to ``flash_eo`` under
+    ``1block`` against ``pvt1`` (what one bf16 ulp in some attention outputs
+    does to this randomly weighted forward); and two steps, whose second
+    step (sigma 0.029 to 0, guidance 7.5 on two large, nearly equal
+    velocities) magnifies any rounding, as ``1block`` against ``pvt1`` shows
+    there too."""
+    import torch
+
+    from superdiff_tpu_torch.ops import flash_attention as fa
+
+    def with_lever(lever, fn):
+        fa._CROSS_IMPL = lever
+        try:
+            return fn()
+        finally:
+            fa._CROSS_IMPL = "einsum"
+
+    def swapped(name, stand_in, fn):
+        """``fn()`` with ``fa.<name>`` replaced by ``stand_in``."""
+        real = getattr(fa, name)
+        setattr(fa, name, stand_in)
+        try:
+            return fn()
+        finally:
+            setattr(fa, name, real)
+
+    def plain_launch(q, k, v, sm_scale, name):
+        return torch.cat([fa._plain(name, *(a[i:i + 1].transpose(1, 2) for a in (q, k, v)),
+                                    sm_scale, None, None).transpose(1, 2)
+                          for i in range(q.shape[0])])
+
+    def reference_fp32_logits(q, k, v, sm_scale):
+        logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * sm_scale
+        attn = torch.softmax(logits, dim=-1).to(v.dtype)
+        return torch.einsum("bhqk,bkhd->bqhd", attn, v)
+
+    def latents(m, cfg, lever="einsum", plain=False):
+        run = lambda: with_lever(lever, lambda: sd.generate(
+            m, "or", *PROMPTS, seed=args.seed, batch_size=8, cfg=cfg, decode=False))
+        out = swapped("_launch_packed", plain_launch, run) if plain else run()
+        return out["latents"]
+
+    def dist(a, b):
+        return (a - b).abs().max().item()
+
+    ctx = torch.cat(sd.prepare_contexts(mod, "or", *PROMPTS, 8))
+    eo = with_attn_impl(sd, mod, "flash_eo")
+    asserts = []
+
+    def rel(a, b):
+        return ((a - b).norm() / b.norm()).item()
+
+    def forward_check(what, m, hw, lever="einsum"):
+        g = torch.Generator(device=dev).manual_seed(args.seed)
+        x = torch.randn(8, hw // 8, hw // 8, 4, device=dev, generator=g)
+        t = torch.tensor(999.0)
+        with torch.no_grad():
+            run = lambda: with_lever(lever, lambda: m.unet(x, t, ctx))
+            got, plain, default = run(), swapped("_launch_packed", plain_launch, run), mod.unet(
+                x, t, ctx)
+            fa._LONG_IMPL = "1block"
+            one_block = eo.unet(x, t, ctx)
+            fa._LONG_IMPL = "pvt1"
+            noise = rel(one_block, eo.unet(x, t, ctx))
+        r = rel(got, plain)
+        log(f"  {what}, one UNet forward: relative L2 {r:.3e} against the same with the "
+            f"kernels' plain versions (tol 5e-2), {rel(got, default):.3e} against the default "
+            f"path; flash_eo under 1block {noise:.3e} against pvt1")
+        asserts.append((f"{what} forward", r, 5e-2))
+
+    def step_check(what, out, m, cfg, lever="einsum", hold=True):
+        lat, kappa = out["latents"], out["traces"]["kappa"]
+        finite(what, lat, kappa)
+        if not ((kappa >= 0) & (kappa <= 1)).all():
+            raise AssertionError(f"{what}: kappa {kappa}")
+        plain, default = latents(m, cfg, lever, plain=True), latents(mod, cfg)
+        scale = plain.abs().max().item()
+        d, d_default = dist(lat, plain), dist(lat, default)
+        log(f"  {what}: latents against the same path with the kernels' plain versions: "
+            f"max abs difference {d:.3e}, against the default path's {d_default:.3e}, of "
+            f"|x|max {scale:.4f}" + (f" (tol {1e-2 * scale:.3e})" if hold else " (printed)")
+            + f"; kappa last step {[round(v, 6) for v in kappa[-1].tolist()]}")
+        if hold:
+            asserts.append((what, d, 1e-2 * scale))
+            asserts.append((f"{what}, against the default path", d_default,
+                            1e-2 * default.abs().max().item()))
+        return default
+
+    one = sd.SDPipelineConfig(num_inference_steps=1)
+    two = sd.SDPipelineConfig(num_inference_steps=2)
+    nat = with_attn_impl(sd, mod, "flash_nat")
+    float(latents(nat, one).sum())  # warmup
+    out, counts, _ = counted_generate(sd, nat, "or", two, 8, args.seed)
+    expect_counts("flash_nat, 2 steps", counts, sd_or_step=2, geglu_ffn_block=32,
+                  _kernel_mh_nat=64)
+    launches = {"_kernel_mh_nat": counts["_kernel_mh_nat"]}
+    default = step_check("flash_nat, 2 steps", out, nat, two, hold=False)
+    fp32 = swapped("_reference", reference_fp32_logits, lambda: latents(mod, two))
+    fa._LONG_IMPL = "1block"
+    one_block = latents(eo, two)
+    fa._LONG_IMPL = "pvt1"
+    log(f"  2 steps, how far roundings alone move the latents: the default path with fp32 "
+        f"logits in its plain short-row attention {dist(fp32, default):.3e} from the default "
+        f"path and {dist(fp32, out['latents']):.3e} from flash_nat; flash_eo under 1block "
+        f"{dist(one_block, latents(eo, two)):.3e} from pvt1 (one bf16 ulp in the long rows' "
+        f"row sums)")
+    out, counts, _ = counted_generate(sd, nat, "or", one, 8, args.seed)
+    expect_counts("flash_nat, 1 step", counts, sd_or_step=1, geglu_ffn_block=16,
+                  _kernel_mh_nat=32)
+    step_check("flash_nat, 1 step", out, nat, one)
+    forward_check("flash_nat, 512 px", nat, one.height)
+    cfg = sd.SDPipelineConfig(num_inference_steps=args.steps)
+    ms, peak = timed_sampler(sd, nat, "or", cfg, 8, args.seed, dev)
+    log(f"  flash_nat sampler: {ms:.3f} ms per step ({args.steps} steps), peak memory "
+        f"{peak:.2f} GiB")
+
+    for lever, want in (("xpk", {"_kernel_cross_packed": 5, "_kernel_mh_nat": 17}),
+                        ("nat", {"_kernel_mh_nat": 22})):
+        out, counts, wall = with_lever(
+            lever, lambda: counted_generate(sd, mod, "or", one, 8, args.seed))
+        expect_counts(f"_CROSS_IMPL={lever}, 1 step", counts, sd_or_step=1, flash_mha_eod=10,
+                      geglu_ffn_block=16, **want)
+        step_check(f"_CROSS_IMPL={lever}, 1 step ({wall * 1e3:.1f} ms with the text encoder)",
+                   out, mod, one, lever)
+        forward_check(f"_CROSS_IMPL={lever}", mod, one.height, lever)
+        if lever == "xpk":
+            launches["_kernel_cross_packed"] = counts["_kernel_cross_packed"]
+
+    big = sd.SDPipelineConfig(num_inference_steps=1, height=768, width=768)
+    out, counts, wall = counted_generate(sd, nat, "or", big, 8, args.seed)
+    expect_counts("768 px flash_nat, 1 step", counts, sd_or_step=1, geglu_ffn_block=16,
+                  _kernel=5, _kernel_mh_nat=27)
+    step_check(f"768 px flash_nat, 1 step ({wall * 1e3:.1f} ms with the text encoder)", out,
+               nat, big)
+    forward_check("flash_nat, 768 px", nat, big.height)
+    del out, nat, eo
+    torch.cuda.empty_cache()
+    for what, err, tol in asserts:
+        if not err <= tol:
+            raise AssertionError(f"{what}: {err} over its tolerance {tol}")
+    return launches
+
+
+def vae_encoder_reference_check(dev, seed):
+    """One full-width ``VAEEncoder`` forward at 256 px on the card (bf16,
+    random weights from ``seed``) against the same weights in fp32 on the
+    host CPU."""
+    import torch
+
+    from superdiff_tpu_torch.models.from_jax import init_like_flax_
+    from superdiff_tpu_torch.models.sd.vae import VAEConfig, VAEEncoder
+
+    with torch.device(dev):
+        enc = VAEEncoder(VAEConfig(), dtype=torch.bfloat16)
+    init_like_flax_(enc, torch.Generator(device=dev).manual_seed(seed)).eval()
+    cpu = VAEEncoder(VAEConfig(), dtype=torch.float32)
+    cpu.load_state_dict({k: v.float().cpu() for k, v in enc.state_dict().items()})
+    cpu.eval()
+    x = torch.randn(1, 256, 256, 3, generator=torch.Generator().manual_seed(13))
+    with torch.no_grad():
+        xd = x.to(dev)
+        enc(xd)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = enc(xd)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        got = got.cpu()
+        ref = cpu(x)
+    rel = ((got - ref).norm() / ref.norm()).item()
+    log(f"  VAEEncoder 256 px ({ms:.3f} ms on the card, bf16, vs fp32 on the CPU): "
+        f"relative L2 error {rel:.3e} (tol 5e-2), output {tuple(got.shape)}")
+    if got.shape != (1, 32, 32, 8) or not (torch.isfinite(got).all() and rel < 5e-2):
+        raise AssertionError(f"VAEEncoder card-vs-CPU: shape {tuple(got.shape)}, error {rel}")
+
+
 def sd_768_profile(sd, mod, args, dev):
     """One 768 px ``or`` step under torch.profiler: device time by kernel
     family, and the device's idle share in that run."""
@@ -934,6 +1237,7 @@ def main(argv=None) -> int:
     checks = {"sd_or_step": check_sd_or_step(dev), "flash_mha_eod": check_flash(dev),
               "geglu_ffn_block": check_geglu(dev), "fused_sde_step": check_fused_sde_step(dev)}
     checks.update(check_bhld(dev))
+    checks.update(check_packed(dev))
     torch.cuda.empty_cache()
     launches = {}
 
@@ -981,6 +1285,9 @@ def main(argv=None) -> int:
     sd_methods_phase(sd, mod, args, dev)
     torch.cuda.empty_cache()
 
+    log("phase 3e: the packed-layout paths (flash_nat, _CROSS_IMPL xpk / nat)")
+    launches.update(sd_packed_phase(sd, mod, args, dev))
+
     log(f"phase 4: CIFAR joint sampler (vpsdeA, 2 models, batch 100, sde/or, "
         f"{args.cifar_steps} steps)")
     zero_counts()
@@ -993,6 +1300,7 @@ def main(argv=None) -> int:
     profile_step(sampler, ctxs, dev)
     sd_768_profile(sd, mod, args, dev)
     unet_reference_check(mod, dev)
+    vae_encoder_reference_check(dev, args.seed)
     del mod, sampler, ctxs
     torch.cuda.empty_cache()
     cifar_profile(models, cifar_cfg, labels, dev)

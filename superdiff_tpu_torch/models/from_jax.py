@@ -12,10 +12,10 @@ mechanical: a Flax path ``down_0_res_0/conv1/kernel`` becomes the
   LayerNorm ``scale`` -> ``weight``, ``Embed`` ``embedding`` -> ``weight``.
 
 One carrier serves both model families: the SD-1.x stack (UNet, CLIP text
-encoder, VAE decoder) and the CIFAR ``ScoreUNet``, whose children carry
-Flax's auto-names (``ResnetBlock_3/Conv_1``). For SD,
-``superdiff_tpu/models/sd/convert.py::unet_mapping`` maps diffusers keys onto
-these Flax names, so a safetensors loader can chain through it.
+encoder, VAE) and the CIFAR ``ScoreUNet``, whose children carry Flax's
+auto-names (``ResnetBlock_3/Conv_1``). For SD, ``models/sd/convert.py`` maps
+diffusers safetensors keys onto these Flax paths and chains each one through
+:func:`flax_leaf_to_torch`.
 """
 
 from __future__ import annotations
@@ -37,25 +37,31 @@ def _flatten(tree: Mapping, prefix: str = ""):
             yield path, np.asarray(val)
 
 
+def torch_key(path: str) -> str:
+    """The ``state_dict`` key of a Flax parameter's ``/``-separated path."""
+    *mods, leaf = path.replace("/GroupNorm_0/", "/").split("/")
+    return ".".join(mods + ["weight" if leaf in ("kernel", "scale", "embedding") else leaf])
+
+
+def flax_leaf_to_torch(path: str, a: np.ndarray) -> tuple[str, torch.Tensor]:
+    """One Flax parameter (its path and array) -> its ``state_dict`` key and
+    tensor."""
+    leaf = path.rsplit("/", 1)[-1]
+    if leaf == "kernel":
+        if a.ndim == 4:
+            a = a.transpose(3, 2, 0, 1)
+        elif a.ndim == 3:  # GEGLU (C, 2, F)
+            a = a.reshape(a.shape[0], -1).T
+        else:
+            a = a.T
+    elif leaf == "bias":
+        a = a.reshape(-1)
+    return torch_key(path), torch.tensor(a)
+
+
 def state_dict_from_flax(params: Mapping) -> dict[str, torch.Tensor]:
     """Nested dict of numpy arrays (a Flax ``params`` tree) -> torch state_dict."""
-    out = {}
-    for path, a in _flatten(params):
-        *mods, leaf = path.replace("/GroupNorm_0/", "/").split("/")
-        if leaf == "kernel":
-            if a.ndim == 4:
-                a = a.transpose(3, 2, 0, 1)
-            elif a.ndim == 3:  # GEGLU (C, 2, F)
-                a = a.reshape(a.shape[0], -1).T
-            else:
-                a = a.T
-            leaf = "weight"
-        elif leaf in ("scale", "embedding"):
-            leaf = "weight"
-        elif leaf == "bias":
-            a = a.reshape(-1)
-        out[".".join(mods + [leaf])] = torch.tensor(a)
-    return out
+    return dict(flax_leaf_to_torch(path, a) for path, a in _flatten(params))
 
 
 def flax_zeros(layer: nn.Module) -> nn.Module:

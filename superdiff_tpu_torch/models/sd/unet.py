@@ -20,9 +20,13 @@ and the 77-token cross-attention of ``flash_eo`` / ``flash_eod``) through
 :func:`flash_mha`, which sends kv <= 256 to plain attention. Which kernel a
 row reaches is those entries' dispatch: at 512 px the 4096- and 1024-token
 rows, at 768 px the 9216-token rows (online softmax), the 2304-token rows
-(d-major) and the 576-token rows (head dim 160). ``einsum`` is the explicit
-fp32 softmax and ``dpa`` one ``scaled_dot_product_attention`` call (no TPU
-kernel in JAX either); ``flash_nat`` raises (ROADMAP.md B7). Every FFN
+(d-major) and the 576-token rows (head dim 160). ``flash_nat`` sends every
+row, self and cross, through :func:`flash_mha` with ``native_long_kv=True``:
+each row that fits one kv block reaches the packed-layout ``_kernel_mh_nat``
+on views of the packed projections (at 768 px the 9216-token rows stay on
+the online-softmax kernel). ``einsum`` is the explicit fp32 softmax and
+``dpa`` one ``scaled_dot_product_attention`` call (no TPU kernel in JAX
+either). Every FFN
 sub-block is :func:`geglu_ffn_block`: the JAX ``ffn_impl`` lever is not
 carried, the port is fused only. ``upsample_impl`` as in JAX.
 
@@ -56,7 +60,7 @@ def sd_timestep_embedding(t: torch.Tensor, dim: int, max_period: float = 10_000.
     return torch.cat([torch.cos(args), torch.sin(args)], dim=-1)
 
 
-ATTN_IMPLS = ("flash_eod", "flash_eo", "flash", "einsum", "dpa")
+ATTN_IMPLS = ("flash_eod", "flash_eo", "flash", "flash_nat", "einsum", "dpa")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -84,10 +88,6 @@ class SDUNetConfig:
     attn_impl: str = "flash_eod"
 
     def __post_init__(self):
-        if self.attn_impl == "flash_nat":
-            raise NotImplementedError(
-                "attn_impl='flash_nat' needs the packed-layout kernel "
-                "(_kernel_mh_nat), which is not ported: ROADMAP.md B7")
         if self.attn_impl not in ATTN_IMPLS:
             raise ValueError(f"attn_impl {self.attn_impl!r}; one of {ATTN_IMPLS}")
 
@@ -145,7 +145,7 @@ class CrossAttention(nn.Module):
             # (B,H,L,D) views of the packed projection, taken as they are
             out = flash_mha_bhld(*(a.permute(0, 2, 1, 3) for a in (q, k, v))).permute(0, 2, 1, 3)
         elif impl.startswith("flash"):
-            out = flash_mha(q, k, v)
+            out = flash_mha(q, k, v, native_long_kv=impl == "flash_nat")
         elif impl == "dpa":
             out = F.scaled_dot_product_attention(
                 *(a.transpose(1, 2) for a in (q, k, v))).transpose(1, 2)

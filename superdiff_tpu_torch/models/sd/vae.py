@@ -1,9 +1,11 @@
-"""SD AutoencoderKL decoder (port of ``VAEDecoder`` and ``decode_to_uint8``
-from ``superdiff_tpu/models/sd/vae.py``).
+"""SD AutoencoderKL (port of ``VAEDecoder``, ``VAEEncoder`` and
+``decode_to_uint8`` from ``superdiff_tpu/models/sd/vae.py``).
 
-Latents NHWC in, fp32 NHWC images in [-1, 1] out; NCHW ``channels_last``
-inside. Upsampling is the literal nearest 2x repeat + 3x3 conv, and the mid
-attention is plain single-head fp32-softmax attention, as in the JAX module.
+Decoder: latents NHWC in, fp32 NHWC images in [-1, 1] out. Encoder: NHWC
+images in, fp32 NHWC (mean, logvar) out. NCHW ``channels_last`` inside.
+Upsampling is the literal nearest 2x repeat + 3x3 conv, downsampling a
+stride-2 3x3 conv padded (0, 1) per axis, and the mid attention is plain
+single-head fp32-softmax attention, as in the JAX module.
 """
 
 from __future__ import annotations
@@ -107,6 +109,46 @@ class VAEDecoder(nn.Module):
                 h = getattr(self, f"up_{i}_conv")(h)
         h = self.conv_out(F.silu(self.norm_out(h)))
         return h.permute(0, 2, 3, 1).float()
+
+
+class VAEEncoder(nn.Module):
+    """images (B, H, W, 3) NHWC -> (mean, logvar) concatenated, (B, H/8, W/8,
+    2 * latent) NHWC fp32."""
+
+    def __init__(self, cfg: VAEConfig = VAEConfig(), dtype=torch.bfloat16):
+        super().__init__()
+        self.cfg, self.dtype = cfg, dtype
+        chs = [cfg.base_channels * m for m in cfg.channel_mults]
+        self.conv_in = _conv3(3, chs[0], dtype)
+        ch = chs[0]
+        for i, out_ch in enumerate(chs):
+            for j in range(cfg.layers_per_block):
+                self.add_module(f"down_{i}_res_{j}", VAEResnet(ch, out_ch, dtype))
+                ch = out_ch
+            if i != len(chs) - 1:
+                self.add_module(f"down_{i}_conv", nn.Conv2d(ch, ch, 3, stride=2, dtype=dtype))
+        self.mid_res_0 = VAEResnet(ch, ch, dtype)
+        self.mid_attn = VAEAttn(ch, dtype)
+        self.mid_res_1 = VAEResnet(ch, ch, dtype)
+        self.norm_out = GroupNorm32(ch, eps=1e-6)
+        self.conv_out = _conv3(ch, 2 * cfg.latent_channels, dtype)
+        self.quant_conv = nn.Conv2d(2 * cfg.latent_channels, 2 * cfg.latent_channels, 1,
+                                    dtype=dtype)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        n = len(self.cfg.channel_mults)
+        h = x.to(self.dtype).permute(0, 3, 1, 2).contiguous(memory_format=torch.channels_last)
+        h = self.conv_in(h)
+        for i in range(n):
+            for j in range(self.cfg.layers_per_block):
+                h = getattr(self, f"down_{i}_res_{j}")(h)
+            if i != n - 1:
+                # diffusers' Downsample2D in the VAE encoder: pad 0 before and
+                # 1 after each spatial axis, then the unpadded stride-2 conv
+                h = getattr(self, f"down_{i}_conv")(F.pad(h, (0, 1, 0, 1)))
+        h = self.mid_res_1(self.mid_attn(self.mid_res_0(h)))
+        h = self.conv_out(F.silu(self.norm_out(h)))
+        return self.quant_conv(h).permute(0, 2, 3, 1).float()
 
 
 def decode_to_uint8(decoder: VAEDecoder, latents: torch.Tensor,

@@ -1,14 +1,24 @@
 // Softmax attention in the (B, H, L, D) layout, for Hopper (sm_90a).
 //
 // Replaces the TPU kernels of superdiff_tpu/ops/pallas/flash_attention.py
-// that _flash_impl reaches (flash_mha and flash_mha_bhld):
-//   mode 0  one kv block, row sum of the fp32 p   _kernel_1block, _kernel_mh
+// that flash_mha and flash_mha_bhld reach:
+//   mode 0  one kv block, row sum of the fp32 p   _kernel_1block, _kernel_mh,
+//                                                 _kernel_mh_nat
 //   mode 1  one kv block, row sum of the bf16 p   _kernel_1block_mxsum,
 //                                                 _make_pipe_kernel, _make_pvt_kernel
 //   mode 2  several kv blocks, online softmax     _kernel
-// The five single-block TPU bodies differ among themselves only in how they
-// feed the TPU's matrix unit (chains, a transposed P.V, heads per program);
-// as functions they are modes 0 and 1.
+//   mode 3  short kv (<= 128), bf16 row sum,      _kernel_cross_packed
+//           shift max(row max, 0) below 128 kv,
+//           denominator rounded to bf16
+// The six single-block TPU bodies differ among themselves only in how they
+// feed the TPU's matrix unit (chains, a transposed P.V, heads per program,
+// per-head lane slices of a packed tile); as functions they are modes 0 and
+// 1. _kernel_mh_nat is mode 0 on views of the packed (B, L, H*D)
+// projections. _kernel_cross_packed multiplies by block-diagonal K and V
+// operands with one 128-row kv block per head: its zero-padded columns give
+// logits of exactly 0, which take part in the row max, and its denominator
+// comes out of a matmul whose bf16 operand rounds the row sum first. Mode 3
+// reproduces both roundings and skips the padded work.
 //
 // q, k, v and the output are (B, H, L, D) views with unit stride along D
 // (any batch, head and row strides, so a view of a packed projection or of a
@@ -17,18 +27,29 @@
 //   * scores are bf16 x bf16 products accumulated in fp32 (base-2 logits);
 //   * p is rounded to bf16 for P.V; fp32 accumulation, one divide at the end,
 //     bf16 output.
-// Modes 0 and 1 make TWO PASSES over k (row max, then exp2 against V), so
-// every p = exp2(s - final row max), as a whole-row kv block gives it; they
-// differ only in whether the row sum adds p before or after its rounding.
-// Mode 2 makes ONE pass with the running (m, l, acc) in fp32 registers:
-// alpha = exp2(m_prev - m_next) rescales l and acc at every kv tile, l adds
-// the fp32 p. Its kv tile (64) is not the TPU kernel's block_k: the function
-// is the same, only the maximum each bf16 p is rounded against moves.
+// Modes 0, 1 and 3 make TWO PASSES over k (row max, then exp2 against V), so
+// every p = exp2(s - final row max), as a whole-row kv block gives it; modes
+// 0 and 1 differ only in whether the row sum adds p before or after its
+// rounding. Mode 2 makes ONE pass with the running (m, l, acc) in fp32
+// registers: alpha = exp2(m_prev - m_next) rescales l and acc at every kv
+// tile, l adds the fp32 p. Its kv tile (64) is not the TPU kernel's block_k:
+// the function is the same, only the maximum each bf16 p is rounded against
+// moves.
+//
+// Any kv length: the last kv tile may be partial. Its rows past Lk are
+// zero-filled in shared memory and never read from global memory (past Lk
+// lie the next batch's rows or the end of the allocation), their scores are
+// -inf (out of the max, p exactly 0), and V's zero rows keep 0 * V from
+// turning stale shared memory into NaN. The guards are a template parameter
+// (TAIL), compiled in only for kv that is not a multiple of 64: measured in
+// one call against the code without them, they cost mode 2 five per cent at
+// kv 9216 even where none fires.
 //
 // Bound on the H100 at the main-path shapes (H = 8): per (b, h) the work is
-// 4 L^2 D flops and L^2 exp2. The 9216-token rows (D = 40, B*H = 192) do
+// 4 Lq Lk D flops and Lq Lk exp2. The 9216-token rows (D = 40, B*H = 192) do
 // 1.63e10 exp2 (3.9 ms at 4.18e12/s) against 2.6 ms of tensor-core time, so
-// exp2 binds; at D = 160 (576 tokens) the tensor cores bind.
+// exp2 binds; at D = 160 (576 tokens) the tensor cores bind; at kv 77 (the
+// text cross-attention) the q and output streams bind.
 // Design: mma.sync m16n8k16 bf16, 8 warps of 16 query rows (128-row q tile,
 // the last one guarded when L % 128 != 0), 64-wide kv tiles double-buffered
 // with cp.async. K fragments are 32-bit shared loads, V (row-major, so the
@@ -53,7 +74,7 @@ constexpr int kBQ = kWarps * 16;  // query rows per block
 constexpr int kBK = 64;           // kv rows per tile
 constexpr int kThreads = kWarps * 32;
 
-constexpr int kSumF32 = 0, kSumBf16 = 1, kOnline = 2;
+constexpr int kSumF32 = 0, kSumBf16 = 1, kOnline = 2, kCross = 3;
 
 template <int D>
 struct Shape {
@@ -72,7 +93,7 @@ struct Strides {
   long long b, h, l;
 };
 
-template <int D, int MODE>
+template <int D, int MODE, bool TAIL>
 __global__ void __launch_bounds__(kThreads)
 attn_bhld_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                  const bf16* __restrict__ v, bf16* __restrict__ out, int Lq, int Lk,
@@ -132,22 +153,31 @@ attn_bhld_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     qf[ks][3] = qpair(r1, c0 + 8);
   }
 
-  // async tile loads into buffer `buf`
+  // async tile loads into buffer `buf`; rows past Lk (a partial last tile)
+  // are zero-filled and not read
   auto load_k = [&](int buf, int kv0) {
     for (int i = tid; i < kBK * (D / 8); i += kThreads) {
       const int j = i / (D / 8), c = i % (D / 8);
-      sdt::cp_async16(&sKs[buf][j][c * 8], kbase + (kv0 + j) * sk.l + c * 8);
+      if (!TAIL || kv0 + j < Lk) {
+        sdt::cp_async16(&sKs[buf][j][c * 8], kbase + (kv0 + j) * sk.l + c * 8);
+      } else {
+        *reinterpret_cast<uint4*>(&sKs[buf][j][c * 8]) = make_uint4(0, 0, 0, 0);
+      }
     }
   };
   auto load_v = [&](int buf, int kv0) {
     for (int i = tid; i < kBK * (D / 8); i += kThreads) {
       const int j = i / (D / 8), c = i % (D / 8);
-      sdt::cp_async16(&sVs[buf][j][c * 8], vbase + (kv0 + j) * sv.l + c * 8);
+      if (!TAIL || kv0 + j < Lk) {
+        sdt::cp_async16(&sVs[buf][j][c * 8], vbase + (kv0 + j) * sv.l + c * 8);
+      } else {
+        *reinterpret_cast<uint4*>(&sVs[buf][j][c * 8]) = make_uint4(0, 0, 0, 0);
+      }
     }
   };
-  // Walk the kv tiles with the next tile in flight: `body(buf)` runs on a
-  // landed tile; `with_v` also streams V.
-  const int n_tiles = Lk / kBK;
+  // Walk the kv tiles with the next tile in flight: `body(buf, kv0)` runs on
+  // a landed tile; `with_v` also streams V.
+  const int n_tiles = (Lk + kBK - 1) / kBK;
   auto sweep = [&](bool with_v, auto&& body) {
     load_k(0, 0);
     if (with_v) load_v(0, 0);
@@ -160,12 +190,14 @@ attn_bhld_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       sdt::cp_async_commit();
       sdt::cp_async_wait<1>();
       __syncthreads();  // tile `it` landed for every thread
-      body(it & 1);
+      body(it & 1, it * kBK);
       __syncthreads();  // its buffer is free for tile it + 2
     }
     sdt::cp_async_wait<0>();
   };
-  auto scores = [&](int buf, float (&s)[kBK / 8][4]) {
+  // base-2 logits of one kv tile; the columns past Lk of a partial last tile
+  // are -inf (out of the row max, p = exp2(-inf) = 0)
+  auto scores = [&](int buf, int kv0, float (&s)[kBK / 8][4]) {
 #pragma unroll
     for (int nt = 0; nt < kBK / 8; ++nt) {
       s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.0f;
@@ -173,6 +205,15 @@ attn_bhld_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       for (int ks = 0; ks < S::KS; ++ks) {
         const bf16* kr = &sKs[buf][nt * 8 + g][ks * 16 + 2 * t];
         mma_bf16_16816(s[nt], qf[ks], ld_pair(kr), ld_pair(kr + 8));
+      }
+    }
+    if (TAIL && kv0 + kBK > Lk) {
+#pragma unroll
+      for (int nt = 0; nt < kBK / 8; ++nt) {
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          if (kv0 + nt * 8 + 2 * t + (c & 1) >= Lk) s[nt][c] = -INFINITY;
+        }
       }
     }
   };
@@ -189,7 +230,10 @@ attn_bhld_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
   };
 
-  float m0 = -INFINITY, m1 = -INFINITY;  // row max of the base-2 scores
+  // row max of the base-2 scores; mode 3 below 128 kv starts at 0, the
+  // logit of the TPU kernel's zero-padded kv columns
+  const float m_init = (MODE == kCross && Lk < 128) ? 0.0f : -INFINITY;
+  float m0 = m_init, m1 = m_init;
   float l0 = 0.0f, l1 = 0.0f;            // row sums (this thread's share)
   float s[kBK / 8][4];
   float o[S::NT][4];
@@ -198,8 +242,8 @@ attn_bhld_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
   if constexpr (MODE != kOnline) {
     // pass 1: the final row max
-    sweep(false, [&](int buf) {
-      scores(buf, s);
+    sweep(false, [&](int buf, int kv0) {
+      scores(buf, kv0, s);
       float t0, t1;
       tile_max(s, t0, t1);
       m0 = fmaxf(m0, t0);
@@ -211,8 +255,8 @@ attn_bhld_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
   // p = exp2(s - m) against V; ldmatrix row of this lane inside a 16 x 8 slab
   const int vrow = (lane & 8) + (lane & 7);
-  sweep(true, [&](int buf) {
-    scores(buf, s);
+  sweep(true, [&](int buf, int kv0) {
+    scores(buf, kv0, s);
     if constexpr (MODE == kOnline) {
       float t0, t1;
       tile_max(s, t0, t1);
@@ -242,7 +286,7 @@ attn_bhld_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
         const float f10 = exp2f(sv4[2] - m1), f11 = exp2f(sv4[3] - m1);
         const bf16 p00 = __float2bfloat16_rn(f00), p01 = __float2bfloat16_rn(f01);
         const bf16 p10 = __float2bfloat16_rn(f10), p11 = __float2bfloat16_rn(f11);
-        if constexpr (MODE == kSumBf16) {
+        if constexpr (MODE == kSumBf16 || MODE == kCross) {
           l0 += __bfloat162float(p00) + __bfloat162float(p01);
           l1 += __bfloat162float(p10) + __bfloat162float(p11);
         } else {
@@ -265,6 +309,10 @@ attn_bhld_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     l0 += __shfl_xor_sync(0xffffffffu, l0, off);
     l1 += __shfl_xor_sync(0xffffffffu, l1, off);
   }
+  if constexpr (MODE == kCross) {  // the TPU kernel's bf16 denominator
+    l0 = __bfloat162float(__float2bfloat16_rn(l0));
+    l1 = __bfloat162float(__float2bfloat16_rn(l1));
+  }
 
   // o / l, staged through this warp's rows of sQ for coalesced stores
 #pragma unroll
@@ -282,31 +330,42 @@ attn_bhld_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 }
 
-template <int D, int MODE>
+template <int D, int MODE, bool TAIL>
 int launch(const bf16* q, const bf16* k, const bf16* v, bf16* out, int B, int H, int Lq,
            int Lk, const long long* st, float scale, cudaStream_t s) {
   static bool configured = false;
   if (!configured) {
     // above the 48 KB default at every head dim but 40
-    cudaFuncSetAttribute(attn_bhld_kernel<D, MODE>,
+    cudaFuncSetAttribute(attn_bhld_kernel<D, MODE, TAIL>,
                          cudaFuncAttributeMaxDynamicSharedMemorySize, Shape<D>::kSmem);
     configured = true;
   }
   const Strides sq{st[0], st[1], st[2]}, sk{st[3], st[4], st[5]};
   const Strides sv{st[6], st[7], st[8]}, so{st[9], st[10], st[11]};
   dim3 grid((Lq + kBQ - 1) / kBQ, H, B);
-  attn_bhld_kernel<D, MODE><<<grid, kThreads, Shape<D>::kSmem, s>>>(
+  attn_bhld_kernel<D, MODE, TAIL><<<grid, kThreads, Shape<D>::kSmem, s>>>(
       q, k, v, out, Lq, Lk, sq, sk, sv, so, scale);
   return static_cast<int>(cudaGetLastError());
+}
+
+// the guarded kernel only where the last kv tile is partial
+template <int D, int MODE>
+int launch_kv(const bf16* q, const bf16* k, const bf16* v, bf16* out, int B, int H, int Lq,
+              int Lk, const long long* st, float scale, cudaStream_t s) {
+  return Lk % kBK ? launch<D, MODE, true>(q, k, v, out, B, H, Lq, Lk, st, scale, s)
+                  : launch<D, MODE, false>(q, k, v, out, B, H, Lq, Lk, st, scale, s);
 }
 
 template <int D>
 int launch_mode(int mode, const bf16* q, const bf16* k, const bf16* v, bf16* out, int B,
                 int H, int Lq, int Lk, const long long* st, float scale, cudaStream_t s) {
   switch (mode) {
-    case kSumF32: return launch<D, kSumF32>(q, k, v, out, B, H, Lq, Lk, st, scale, s);
-    case kSumBf16: return launch<D, kSumBf16>(q, k, v, out, B, H, Lq, Lk, st, scale, s);
-    case kOnline: return launch<D, kOnline>(q, k, v, out, B, H, Lq, Lk, st, scale, s);
+    case kSumF32: return launch_kv<D, kSumF32>(q, k, v, out, B, H, Lq, Lk, st, scale, s);
+    case kSumBf16: return launch_kv<D, kSumBf16>(q, k, v, out, B, H, Lq, Lk, st, scale, s);
+    case kOnline: return launch_kv<D, kOnline>(q, k, v, out, B, H, Lq, Lk, st, scale, s);
+    case kCross:
+      if (Lk > 128) return static_cast<int>(cudaErrorInvalidValue);
+      return launch_kv<D, kCross>(q, k, v, out, B, H, Lq, Lk, st, scale, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -317,12 +376,10 @@ int launch_mode(int mode, const bf16* q, const bf16* k, const bf16* v, bf16* out
 // the wrapper raises on others.
 extern "C" int attn_bhld_supports(int D) { return D == 40 || D == 80 || D == 160; }
 
-// kv tile: Lk must be a multiple of it.
-extern "C" int attn_bhld_tile() { return kBK; }
-
 // strides: 12 element strides, (batch, head, row) of q, k, v, out in turn.
 // mode: 0 single block / fp32 row sum, 1 single block / bf16 row sum,
-// 2 online softmax over the kv tiles.
+// 2 online softmax over the kv tiles, 3 short kv as _kernel_cross_packed
+// (Lk <= 128). Any Lk >= 1.
 extern "C" int attn_bhld_launch(const void* q, const void* k, const void* v, void* out,
                                 int B, int H, int D, int Lq, int Lk,
                                 const long long* strides, float scale, int mode,
@@ -332,6 +389,7 @@ extern "C" int attn_bhld_launch(const void* q, const void* k, const void* v, voi
   const bf16* k_ = static_cast<const bf16*>(k);
   const bf16* v_ = static_cast<const bf16*>(v);
   bf16* o_ = static_cast<bf16*>(out);
+  if (Lq < 1 || Lk < 1) return static_cast<int>(cudaErrorInvalidValue);
   switch (D) {
     case 40: return launch_mode<40>(mode, q_, k_, v_, o_, B, H, Lq, Lk, strides, scale, s);
     case 80: return launch_mode<80>(mode, q_, k_, v_, o_, B, H, Lq, Lk, strides, scale, s);

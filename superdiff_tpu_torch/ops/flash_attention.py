@@ -12,7 +12,14 @@ rules included (``block_k`` is the whole row up to 1024 kv tokens, else
 divides), and is named after the TPU kernel it replaces:
 
 ==========================  ===============================================
-kv <= 256                   plain PyTorch (:func:`_reference`), as in JAX
+``native_long_kv=True``,    ``_kernel_mh_nat`` (packed layout) when the q
+one kv block                block (``min(64, block_q)`` above 256 kv) halves
+                            to at least 8
+kv <= 256                   ``_CROSS_IMPL``: ``einsum`` plain PyTorch
+                            (:func:`_reference`), as in JAX; ``xpk``
+                            ``_kernel_cross_packed`` for kv <= 128 and
+                            lq >= 4 * H * 128, else ``_kernel_mh_nat``;
+                            ``nat`` ``_kernel_mh_nat``
 one kv block, kv <= 1024    ``_kernel_mh``
 one kv block, kv > 1024     ``_LONG_IMPL``: ``1block`` -> ``_kernel_1block``,
                             ``mxsum`` -> ``_kernel_1block_mxsum``, ``pipe2/4``
@@ -25,15 +32,19 @@ several kv blocks           ``_kernel`` (online softmax)
 ==========================  ===============================================
 
 The Hopper kernels are ``csrc/flash_attention.cu`` (d-major) and
-``csrc/flash_attention_bhld.cu`` (one kernel in three modes: single block
+``csrc/flash_attention_bhld.cu`` (one kernel in four modes: single block
 with the row sum of the fp32 p, single block with the row sum of the bf16 p,
-online softmax). A CUDA tensor is launched or raises (bf16, head dims 40 /
-80 / 160, kv a multiple of 64, rows 16-byte aligned with unit stride along
-D); a CPU tensor takes the kernel's plain PyTorch version, which rounds
-where the TPU body rounds. Forward-mode derivatives go through
+online softmax, and the short-kv mode of ``_kernel_cross_packed``). The
+packed-layout kernels (``_kernel_mh_nat``, ``_kernel_cross_packed``) take
+(B, H, L, D) views of the packed (B, L, H*D) projections and write their
+output packed: no layout copy. A CUDA tensor is launched or raises (bf16,
+head dims 40 / 80 / 160, rows 16-byte aligned with unit stride along D; the
+d-major kernel takes L a multiple of 64, the (B, H, L, D) kernel any kv, up
+to 128 in the ``_kernel_cross_packed`` mode); a CPU tensor takes the
+kernel's plain PyTorch version, which rounds where the TPU body rounds.
+Forward-mode derivatives go through :func:`_reference` /
 :func:`_reference_bhld` / :func:`_reference_eod`, as the JAX ``custom_jvp``
-rules do. The levers ``_CROSS_IMPL = "nat" | "xpk"`` and
-``native_long_kv=True`` (the packed-layout kernels) raise: ROADMAP.md B7.
+rules do.
 
 Launches are counted per TPU-kernel name: ``flash_mha_bhld.launches`` (a
 dict, shared with ``flash_mha``) and ``flash_mha_eod.launches`` (the d-major
@@ -57,7 +68,6 @@ _SIGNATURES = {
 }
 _SIGNATURES_BHLD = {
     "attn_bhld_supports": (_ci, [_ci]),
-    "attn_bhld_tile": (_ci, []),
     "attn_bhld_launch": (_ci, [_vp] * 4 + [_ci] * 5 + [_vp, _cf, _ci, _vp]),
 }
 
@@ -66,7 +76,7 @@ _SIGNATURES_BHLD = {
 _LONG_IMPL = "pvt1"    # single-kv-block kernel for kv > _MH_MAX_KV
 _LONG_BLOCK_Q = 2048   # q block of the long rows
 _MH_MAX_KV = 1024      # kv ceiling of _kernel_mh
-_CROSS_IMPL = "einsum"  # kv <= 256: plain attention; "nat" / "xpk" raise
+_CROSS_IMPL = "einsum"  # kv <= 256: "einsum" plain attention, "nat", "xpk"
 _EOD_CHAINS_LONG, _EOD_BLOCK_Q = 2, 4096     # pvtd2 for kv > 1024
 _EOD_CHAINS_MID, _EOD_BLOCK_Q_MID = 1, 2048  # pvtd1 for kv <= 1024
 
@@ -80,10 +90,11 @@ _LONG_KERNELS = {
     "pvt2": ("_make_pvt_kernel", "bf16"),
     "pvt4": ("_make_pvt_kernel", "bf16"),
 }
-_SUM_OF = {"_kernel_mh": "fp32", **dict(_LONG_KERNELS.values())}
-_MODES = {"fp32": 0, "bf16": 1, "online": 2}
-
-_B7 = "the packed-layout kernels (_kernel_mh_nat, _kernel_cross_packed) are not ported: ROADMAP.md B7"
+_SUM_OF = {"_kernel_mh": "fp32", "_kernel_mh_nat": "fp32", **dict(_LONG_KERNELS.values())}
+# TPU kernel -> mode of flash_attention_bhld.cu
+_MODE_OF = {"_kernel": 2, "_kernel_cross_packed": 3,
+            **{name: 0 if s == "fp32" else 1 for name, s in _SUM_OF.items()}}
+_CROSS_MAX_KV = 128  # the kv block of _kernel_cross_packed
 
 
 # --- plain PyTorch versions --------------------------------------------------
@@ -130,6 +141,21 @@ def _plain_1block(q, k, v, sm_scale: float, sum: str = "fp32"):
     return ((pc.float() @ v.float()) / l).to(q.dtype)
 
 
+def _plain_cross_packed(q, k, v, sm_scale: float):
+    """``_kernel_cross_packed`` on (B, H, L, D), kv <= 128, as its TPU body
+    rounds: the zero-padded kv columns of its block-diagonal K give logits
+    of exactly 0 that join the row max, so below 128 kv the shift is
+    max(row max, 0); p is rounded to v's dtype and summed after the rounding;
+    the row sum is rounded to k's dtype before it divides."""
+    s = _scores(q, k, sm_scale)
+    m = s.amax(-1, keepdim=True)
+    if k.shape[2] < _CROSS_MAX_KV:
+        m = m.clamp(min=0.0)
+    pc = torch.exp2(s - m).to(v.dtype).float()
+    l = pc.sum(-1, keepdim=True).to(k.dtype).float()
+    return ((pc @ v.float()) / l).to(q.dtype)
+
+
 def _plain_multiblock(q, k, v, sm_scale: float, block_q: int, block_k: int):
     """Online-softmax attention on (B, H, L, D), following ``_kernel``'s loop
     over kv blocks of ``block_k``: running max m, sum l of the fp32 p and
@@ -157,6 +183,8 @@ def _plain(name, q, k, v, sm_scale, block_q, block_k):
     """The plain version of the kernel called ``name``."""
     if name == "_kernel":
         return _plain_multiblock(q, k, v, sm_scale, block_q, block_k)
+    if name == "_kernel_cross_packed":
+        return _plain_cross_packed(q, k, v, sm_scale)
     return _plain_1block(q, k, v, sm_scale, _SUM_OF[name])
 
 
@@ -188,6 +216,28 @@ def _kernel_name(lk: int, block_k: int) -> str:
     return _LONG_KERNELS[_LONG_IMPL][0]
 
 
+def _packed_kernel_name(lq: int, lk: int, h: int, block_q: int, block_k: int,
+                        native_long_kv: bool):
+    """The packed-layout kernel JAX ``_flash`` picks, or None: the
+    ``native_long_kv`` branch for one kv block, then the ``_CROSS_IMPL``
+    levers for kv <= 256."""
+    if block_k != lk:
+        return None
+    if native_long_kv:
+        bq = block_q if lk <= 256 else min(64, block_q)
+        while lq % bq:
+            bq //= 2
+        if bq >= 8:
+            return "_kernel_mh_nat"
+    if lk > 256:
+        return None
+    if _CROSS_IMPL == "xpk" and lk <= _CROSS_MAX_KV and lq >= 4 * h * _CROSS_MAX_KV:
+        return "_kernel_cross_packed"
+    if _CROSS_IMPL in ("nat", "xpk"):
+        return "_kernel_mh_nat"
+    return None
+
+
 # --- kernel launches ---------------------------------------------------------
 
 def _check_bf16(what, *tensors):
@@ -205,30 +255,43 @@ def _row_view(what, t):
     return t
 
 
-def _launch_bhld(q, k, v, sm_scale, name):
+def _launch_bhld(q, k, v, sm_scale, name, out=None):
+    """Launch ``flash_attention_bhld.cu`` in the mode of TPU kernel ``name``
+    on (B, H, L, D) views; ``out``, a (B, H, Lq, D) view to write (else a new
+    contiguous tensor)."""
     what = f"flash_mha_bhld[{name}]"
     _build.require_cuda(what, q, k, v)
     b, h, lq, d = q.shape
     lk = k.shape[2]
-    if k.shape != (b, h, lk, d) or v.shape != k.shape:
+    if k.shape != (b, h, lk, d) or v.shape != k.shape or min(lq, lk) < 1:
         raise ValueError(f"{what}: q (B,H,Lq,D), k and v (B,H,Lk,D); got "
                          f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
     _check_bf16(what, q, k, v)
     lib = _build.load("flash_attention_bhld", _SIGNATURES_BHLD)
-    tile = lib.attn_bhld_tile()
-    if not lib.attn_bhld_supports(d) or lk % tile:
-        raise ValueError(f"{what}: kernel takes head_dim 40, 80 or 160 and kv a "
-                         f"multiple of {tile}; got D={d}, kv={lk}")
+    if not lib.attn_bhld_supports(d):
+        raise ValueError(f"{what}: kernel takes head_dim 40, 80 or 160; got D={d}")
+    if name == "_kernel_cross_packed" and lk > _CROSS_MAX_KV:
+        raise ValueError(f"{what}: kv at most {_CROSS_MAX_KV}; got {lk}")
     q, k, v = (_row_view(what, t) for t in (q, k, v))
-    out = torch.empty((b, h, lq, d), dtype=q.dtype, device=q.device)
+    if out is None:
+        out = torch.empty((b, h, lq, d), dtype=q.dtype, device=q.device)
+    out = _row_view(what, out)
     strides = (ctypes.c_longlong * 12)(*(s for t in (q, k, v, out) for s in t.stride()[:3]))
-    mode = _MODES["online" if name == "_kernel" else _SUM_OF[name]]
     p = _build.ptr
     err = lib.attn_bhld_launch(p(q), p(k), p(v), p(out), b, h, d, lq, lk,
-                               ctypes.cast(strides, _vp), float(sm_scale * LOG2_E), mode,
-                               _build.stream_ptr(q))
+                               ctypes.cast(strides, _vp), float(sm_scale * LOG2_E),
+                               _MODE_OF[name], _build.stream_ptr(q))
     _build.check(err, what)
     flash_mha_bhld.launches[name] += 1
+    return out
+
+
+def _launch_packed(q, k, v, sm_scale, name):
+    """The packed-layout kernels on (B, L, H, D) views of the packed
+    projections; the output is written packed, (B, Lq, H, D) contiguous."""
+    out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    _launch_bhld(*(a.transpose(1, 2) for a in (q, k, v)), sm_scale, name,
+                 out=out.transpose(1, 2))
     return out
 
 
@@ -290,6 +353,28 @@ class _FlashBhld(torch.autograd.Function):
         return _jvp_through(_reference_bhld, ctx, (q_t, k_t, v_t))
 
 
+class _FlashPacked(torch.autograd.Function):
+    """A packed-layout kernel (CUDA) or its plain version (CPU) forward on
+    (B, L, H, D); tangents through :func:`_reference`, as JAX
+    ``_flash_jvp``."""
+
+    @staticmethod
+    def forward(q, k, v, sm_scale, name):
+        if q.is_cuda:
+            return _launch_packed(q, k, v, sm_scale, name)
+        q, k, v = (a.transpose(1, 2) for a in (q, k, v))
+        return _plain(name, q, k, v, sm_scale, None, None).transpose(1, 2)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.save_for_forward(*inputs[:3])
+        ctx.sm_scale = inputs[3]
+
+    @staticmethod
+    def jvp(ctx, q_t, k_t, v_t, *_):
+        return _jvp_through(_reference, ctx, (q_t, k_t, v_t))
+
+
 class _FlashEod(torch.autograd.Function):
     """Kernel (CUDA) or reference (CPU) forward; tangents through the
     reference."""
@@ -332,22 +417,24 @@ def flash_mha_bhld(q, k, v, *, sm_scale: float | None = None,
 def flash_mha(q, k, v, *, sm_scale: float | None = None, block_q: int | None = None,
               block_k: int | None = None, native_long_kv: bool = False):
     """softmax(q k^T * sm_scale) v on (B, L, H, D). kv <= 256 is plain
-    attention; 256 < kv <= 1024 the single-pass kernel; longer kv in one
-    block (up to 4096) the ``_LONG_IMPL`` kernel; several kv blocks the
-    online-softmax kernel. A caller's ``block_k`` only takes effect above
-    1024 kv tokens. The plain version when the sequence does not tile."""
-    if native_long_kv:
-        raise NotImplementedError(f"native_long_kv: {_B7}")
-    d = q.shape[3]
+    attention (or a packed-layout kernel under ``_CROSS_IMPL``); 256 < kv <=
+    1024 the single-pass kernel; longer kv in one block (up to 4096) the
+    ``_LONG_IMPL`` kernel; several kv blocks the online-softmax kernel.
+    ``native_long_kv=True`` sends every row that fits one kv block to the
+    packed-layout ``_kernel_mh_nat``. A caller's ``block_k`` only takes
+    effect above 1024 kv tokens. The plain version when the sequence does
+    not tile."""
+    h, d = q.shape[2], q.shape[3]
     lq, lk = q.shape[1], k.shape[1]
     if sm_scale is None:
         sm_scale = d ** -0.5
     block_q, block_k = _blocks(lq, lk, block_q, block_k)
     if not _tiles(block_q, block_k, lk):
         return _reference(q, k, v, sm_scale)
+    name = _packed_kernel_name(lq, lk, h, block_q, block_k, native_long_kv)
+    if name is not None:
+        return _FlashPacked.apply(q, k, v, float(sm_scale), name)
     if block_k == lk and lk <= 256:
-        if _CROSS_IMPL != "einsum":
-            raise NotImplementedError(f"_CROSS_IMPL={_CROSS_IMPL!r}: {_B7}")
         return _reference(q, k, v, sm_scale)
     out = _FlashBhld.apply(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
                            float(sm_scale), block_q, block_k, _kernel_name(lk, block_k))
@@ -376,4 +463,4 @@ def flash_mha_eod(qt, k, vt, *, sm_scale: float | None = None,
 
 
 flash_mha_eod.launches = 0
-flash_mha_bhld.launches = flash_mha.launches = {name: 0 for name in ("_kernel", *_SUM_OF)}
+flash_mha_bhld.launches = flash_mha.launches = {name: 0 for name in _MODE_OF}

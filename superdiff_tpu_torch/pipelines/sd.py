@@ -34,6 +34,7 @@ from ..core import kappa as kp
 from ..core.schedules import SigmaGrid
 from ..models.sd.clip import CLIPTextConfig, CLIPTextEncoder, Tokenizer
 from ..models.from_jax import init_like_flax_
+from ..models.sd import convert
 from ..models.sd.unet import SDUNet, SDUNetConfig
 from ..models.sd.vae import VAEConfig, VAEDecoder, decode_to_uint8
 from ..ops.sd_fused_step import sd_or_step
@@ -77,24 +78,34 @@ def build_sd_modules(
     unet_config: Optional[SDUNetConfig] = None,
     text_config: Optional[CLIPTextConfig] = None,
     vae_config: Optional[VAEConfig] = None,
+    weights_dir: Optional[str] = None,
     device="cuda",
     dtype=torch.bfloat16,
 ) -> SDModules:
     """Build the SD stack on ``device`` with random weights drawn from
-    ``seed`` with the Flax initialisers' distributions. Load carried weights
-    afterwards with ``load_state_dict`` (see ``models/from_jax.py``)."""
+    ``seed`` with the Flax initialisers' distributions; then, when
+    ``weights_dir`` is given, load the HF diffusers safetensors found there
+    (``models/sd/convert.py``; a module whose file is absent keeps its random
+    init) and take the tokenizer from it."""
     device = torch.device(device)
     gen = torch.Generator(device=device).manual_seed(seed)
+    ucfg = unet_config or SDUNetConfig()
     tcfg = text_config or CLIPTextConfig()
     vcfg = vae_config or VAEConfig()
     with torch.device(device):
-        unet = SDUNet(unet_config or SDUNetConfig(), dtype=dtype)
+        unet = SDUNet(ucfg, dtype=dtype)
         text = CLIPTextEncoder(tcfg, dtype=dtype)
         vae = VAEDecoder(vcfg, dtype=dtype)
     for m in (unet, text, vae):
         init_like_flax_(m, gen).eval().requires_grad_(False)
-    return SDModules(unet=unet, text=text, tokenizer=Tokenizer(tcfg), vae=vae,
-                     vae_scaling=vcfg.scaling_factor, device=device)
+    if weights_dir:
+        convert.load_sd_weights(
+            weights_dir, unet, text, vae, clip_num_layers=tcfg.num_layers,
+            unet_n_down=len(ucfg.block_out_channels),
+            unet_layers_per_block=ucfg.layers_per_block,
+            vae_n_levels=len(vcfg.channel_mults), vae_layers_per_block=vcfg.layers_per_block)
+    return SDModules(unet=unet, text=text, tokenizer=Tokenizer(tcfg, hf_path=weights_dir),
+                     vae=vae, vae_scaling=vcfg.scaling_factor, device=device)
 
 
 def encode_prompts(mod: SDModules, prompts: list[str]) -> torch.Tensor:

@@ -1,6 +1,6 @@
-"""Port CLIP text encoder, VAE decoder and tokenizer fallback vs the JAX
-package, tiny configs, fp32 on the CPU (tolerance 1e-5 relative to the
-output's largest magnitude: sums in other orders)."""
+"""Port CLIP text encoder, VAE decoder and encoder, and tokenizer fallback vs
+the JAX package, tiny configs, fp32 on the CPU (tolerance 1e-5 relative to
+the output's largest magnitude: sums in other orders)."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -11,7 +11,8 @@ from torch_parity import carry, draw_params, t
 from superdiff_tpu.models.sd import clip as jclip
 from superdiff_tpu.models.sd import vae as jvae
 from superdiff_tpu_torch.models.sd.clip import CLIPTextConfig, CLIPTextEncoder, Tokenizer
-from superdiff_tpu_torch.models.sd.vae import VAEConfig, VAEDecoder, decode_to_uint8
+from superdiff_tpu_torch.models.sd.vae import (VAEConfig, VAEDecoder, VAEEncoder,
+                                               decode_to_uint8)
 
 torch.set_num_threads(1)
 
@@ -71,3 +72,18 @@ def test_decode_to_uint8_matches_jax(vaes):
     assert got.dtype == np.uint8
     # a pixel may land on the other side of an integer boundary
     assert np.abs(got.astype(int) - ref.astype(int)).max() <= 1
+
+
+@pytest.mark.parametrize("h,w", [(16, 16), (16, 24)])
+def test_vae_encoder_matches_jax(h, w):
+    """(mean, logvar) of images; the stride-2 down conv pads (0, 1) on each
+    axis, as diffusers' encoder does (a symmetric pad shifts every output)."""
+    jenc = jvae.VAEEncoder(jvae.VAEConfig.tiny(), dtype=jnp.float32)
+    params = draw_params(jenc, jnp.zeros((1, 16, 16, 3)), seed=9)
+    port = carry(VAEEncoder(VAEConfig.tiny(), dtype=torch.float32), params)
+    x = np.random.default_rng(10).standard_normal((2, h, w, 3)).astype(np.float32)
+    ref = jenc.apply({"params": params}, jnp.asarray(x))
+    with torch.no_grad():
+        got = port(t(x))
+    assert got.dtype == torch.float32 and got.shape == (2, h // 2, w // 2, 8)
+    _close(got.numpy(), ref)

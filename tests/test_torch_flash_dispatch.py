@@ -45,15 +45,15 @@ def _table_name(body: str) -> str:
     return f"_make_{m.group(1)}_kernel" if m else body
 
 
-def _arrays(entry, lq, lk, d, make):
+def _arrays(entry, lq, lk, d, make, h=1):
     if entry == "flash_mha":
-        return make(1, lq, 1, d), make(1, lk, 1, d), make(1, lk, 1, d)
+        return make(1, lq, h, d), make(1, lk, h, d), make(1, lk, h, d)
     if entry == "flash_mha_bhld":
-        return make(1, 1, lq, d), make(1, 1, lk, d), make(1, 1, lk, d)
-    return make(1, 1, d, lq), make(1, 1, lk, d), make(1, 1, d, lk)
+        return make(1, h, lq, d), make(1, h, lk, d), make(1, h, lk, d)
+    return make(1, h, d, lq), make(1, h, lk, d), make(1, h, d, lk)
 
 
-def _jax_choice(monkeypatch, entry, lq, lk, d, kwargs):
+def _jax_choice(monkeypatch, entry, lq, lk, d, kwargs, h=1):
     seen = []
 
     def spy(kernel, out_shape, **_):
@@ -62,13 +62,13 @@ def _jax_choice(monkeypatch, entry, lq, lk, d, kwargs):
         return lambda *a: jnp.zeros(out_shape.shape, out_shape.dtype)
 
     monkeypatch.setattr(jfa.pl, "pallas_call", spy)
-    args = _arrays(entry, lq, lk, d, lambda *s: jax.ShapeDtypeStruct(s, jnp.float32))
+    args = _arrays(entry, lq, lk, d, lambda *s: jax.ShapeDtypeStruct(s, jnp.float32), h)
     jax.eval_shape(lambda *a: getattr(jfa, entry)(*a, interpret=True, **kwargs), *args)
     assert len(seen) <= 1
     return seen[0] if seen else "plain"
 
 
-def _port_choice(monkeypatch, entry, lq, lk, d, kwargs):
+def _port_choice(monkeypatch, entry, lq, lk, d, kwargs, h=1):
     seen = []
 
     def plain_spy(name, q, *_):
@@ -85,16 +85,16 @@ def _port_choice(monkeypatch, entry, lq, lk, d, kwargs):
     monkeypatch.setattr(fa, "_reference", reference_spy("plain"))
     monkeypatch.setattr(fa, "_reference_bhld", reference_spy("plain"))
     monkeypatch.setattr(fa, "_reference_eod", reference_spy("_make_pvtd_kernel"))
-    getattr(fa, entry)(*_arrays(entry, lq, lk, d, torch.zeros), **kwargs)
+    getattr(fa, entry)(*_arrays(entry, lq, lk, d, torch.zeros, h), **kwargs)
     assert len(seen) == 1
     return seen[0]
 
 
-def _both(monkeypatch, entry, lq, lk, d, kwargs):
+def _both(monkeypatch, entry, lq, lk, d, kwargs, h=1):
     if entry == "flash_mha_eod":  # it takes no block_k
         kwargs = {k: v for k, v in kwargs.items() if k != "block_k"}
-    return (_port_choice(monkeypatch, entry, lq, lk, d, kwargs),
-            _jax_choice(monkeypatch, entry, lq, lk, d, kwargs))
+    return (_port_choice(monkeypatch, entry, lq, lk, d, kwargs, h),
+            _jax_choice(monkeypatch, entry, lq, lk, d, kwargs, h))
 
 
 # flash_mha_eod is self-attention only
@@ -140,14 +140,49 @@ def test_the_main_path_rows_reach_the_kernels_the_table_names(monkeypatch):
     assert fa._blocks(4608, 4608, None, None) == (512, 512)
 
 
-@pytest.mark.parametrize("lever", ["nat", "xpk", "native_long_kv"])
-def test_packed_layout_levers_raise(monkeypatch, lever):
-    q = torch.zeros(1, 512, 1, 40)
-    kv = torch.zeros(1, 77, 1, 40)
-    if lever == "native_long_kv":
-        with pytest.raises(NotImplementedError, match="ROADMAP.md B7"):
-            fa.flash_mha(q, q, q, native_long_kv=True)
-    else:
-        monkeypatch.setattr(fa, "_CROSS_IMPL", lever)
-        with pytest.raises(NotImplementedError, match="ROADMAP.md B7"):
-            fa.flash_mha(q, kv, kv)
+def _set_lever(monkeypatch, lever, kwargs):
+    """Select a packed-layout lever in both packages; returns the keyword
+    arguments of ``flash_mha`` under it."""
+    if lever in ("native_long_kv", "flash_nat"):
+        return {**kwargs, "native_long_kv": True}
+    monkeypatch.setattr(fa, "_CROSS_IMPL", lever)
+    monkeypatch.setattr(jfa, "_CROSS_IMPL", lever)
+    return kwargs
+
+
+@pytest.mark.parametrize("lever", ["native_long_kv", "nat", "xpk"])
+@pytest.mark.parametrize("lq,lk,d,kwargs", SHAPES,
+                         ids=[f"{a}x{b}d{c}{'b' if k else ''}" for a, b, c, k in SHAPES])
+def test_packed_layout_levers_pick_the_same_kernel(monkeypatch, lever, lq, lk, d, kwargs):
+    port, ref = _both(monkeypatch, "flash_mha", lq, lk, d, _set_lever(monkeypatch, lever, kwargs))
+    assert port == ref, (lever, lq, lk, d, kwargs)
+
+
+# per SD step (latent batch 8, 8 heads): (tokens, head dim, transformer
+# blocks at that level); each block has a self- and a 77-token cross-row
+SD_ROWS = {512: [(4096, 40, 5), (1024, 80, 5), (256, 160, 5), (64, 160, 1)],
+           768: [(9216, 40, 5), (2304, 80, 5), (576, 160, 5), (144, 160, 1)]}
+
+
+@pytest.mark.parametrize("px,lever,want", [
+    (512, "flash_nat", {"_kernel_mh_nat": 32}),
+    (512, "xpk", {"_kernel_cross_packed": 5, "_kernel_mh_nat": 17}),
+    (512, "nat", {"_kernel_mh_nat": 22}),
+    (768, "flash_nat", {"_kernel": 5, "_kernel_mh_nat": 27}),
+])
+def test_sd_step_kernels_under_the_levers(monkeypatch, px, lever, want):
+    """The kernels one SD step reaches through ``flash_mha`` under each lever,
+    in both packages: ``attn_impl="flash_nat"`` sends every row there with
+    ``native_long_kv``; under the ``_CROSS_IMPL`` levers the default
+    ``flash_eod`` keeps the long self-attention rows (10 ``flash_mha_eod``
+    launches) and the other 22 rows go through ``flash_mha``."""
+    tally = {}
+    for l, d, blocks in SD_ROWS[px]:
+        for lk in (l, 77):
+            if lever != "flash_nat" and lk == l > 256:
+                continue  # flash_mha_eod's rows
+            kwargs = _set_lever(monkeypatch, lever, {})
+            port, ref = _both(monkeypatch, "flash_mha", l, lk, d, kwargs, h=8)
+            assert port == ref, (l, lk, d)
+            tally[port] = tally.get(port, 0) + blocks
+    assert tally == want

@@ -79,21 +79,21 @@ def _close(got, ref, err_msg="", atol=SCALED_ATOL):
                                err_msg=err_msg)
 
 
-def _jax_noise(seed=SEED):
+def _jax_noise(seed=SEED, steps=STEPS):
     """The JAX sampler's draws for PRNGKey(seed) (pipelines/sd.py:176-222):
     the initial latent, the per-step normals and the per-step Rademacher
     probes (drawn from the same step key as the normals)."""
     shape = (BATCH, HW // 8, HW // 8, 4)
     init_key, path_key = jax.random.split(jax.random.PRNGKey(seed))
     x0 = np.asarray(jax.random.normal(init_key, shape))
-    keys = [jax.random.fold_in(path_key, i) for i in range(STEPS)]
+    keys = [jax.random.fold_in(path_key, i) for i in range(steps)]
     zs = np.stack([np.asarray(jax.random.normal(k, shape)) for k in keys])
     probes = np.stack([np.asarray(jito.rademacher(k, shape)) for k in keys])
     return x0, zs, probes
 
 
-def _cfg(dedup):
-    return sd.SDPipelineConfig(num_inference_steps=STEPS, height=HW, width=HW,
+def _cfg(dedup, steps=STEPS):
+    return sd.SDPipelineConfig(num_inference_steps=steps, height=HW, width=HW,
                                cond_dedup=dedup)
 
 
@@ -109,28 +109,29 @@ PROMPTS = ("a photo of a cat sitting on a sofa",
 _jax_samplers = {}
 
 
-def _jax_generate(jmod, method, prompts, seed):
-    """``jsd.generate`` without decoding, with one jitted sampler shared by
-    the six ``sd_*`` baselines (they differ only in their prompt, which
-    ``prepare_contexts`` builds)."""
-    family = "sd_a" if method.startswith("sd_") else method
+def _jax_generate(jmod, method, prompts, seed, steps=STEPS):
+    """``jsd.generate`` without decoding, with one jitted sampler per module
+    and step count shared by the six ``sd_*`` baselines (they differ only in
+    their prompt, which ``prepare_contexts`` builds)."""
+    family = (id(jmod), steps, "sd_a" if method.startswith("sd_") else method)
     if family not in _jax_samplers:
-        jcfg = jsd.SDPipelineConfig(num_inference_steps=STEPS, height=HW, width=HW,
+        jcfg = jsd.SDPipelineConfig(num_inference_steps=steps, height=HW, width=HW,
                                     cond_dedup=False, lift=0.3, kappa_fixed=0.4)
-        _jax_samplers[family] = jsd.make_sampler(jmod, family, jcfg)
+        _jax_samplers[family] = jsd.make_sampler(jmod, family[2], jcfg)
     ctxs = jsd.prepare_contexts(jmod, method, *prompts, BATCH)
     latents, traces = _jax_samplers[family](jax.random.PRNGKey(seed), *ctxs)
     return {"latents": latents, "traces": traces}
 
 
 def check_method_matches_jax(stacks, method, prompts=PROMPTS, kappa_atol=KAPPA_ATOL,
-                             scaled_atol=SCALED_ATOL, seed=SEED):
-    """One method's port trajectory against the JAX fp32 trajectory."""
+                             scaled_atol=SCALED_ATOL, seed=SEED, steps=STEPS):
+    """One method's port trajectory against the JAX fp32 trajectory; ``stacks``
+    is (JAX modules, port modules)."""
     jmod, mod = stacks
-    ref = _jax_generate(jmod, method, prompts, seed)
-    cfg = dataclasses.replace(_cfg(False), lift=0.3, kappa_fixed=0.4)
+    ref = _jax_generate(jmod, method, prompts, seed, steps)
+    cfg = dataclasses.replace(_cfg(False, steps), lift=0.3, kappa_fixed=0.4)
     got = sd.generate(mod, method, *prompts, seed=seed, batch_size=BATCH,
-                      cfg=cfg, noise=_jax_noise(seed), decode=False)
+                      cfg=cfg, noise=_jax_noise(seed, steps), decode=False)
     _close(got["latents"], ref["latents"], atol=scaled_atol)
     for key in ("ll_obj", "ll_bg", "final_ll_obj", "final_ll_bg", "final_ll_uncond"):
         _close(got["traces"][key], ref["traces"][key], err_msg=key, atol=scaled_atol)
@@ -179,15 +180,7 @@ def test_generator_noise_is_seeded(stacks):
     assert torch.equal(a, b) and torch.isfinite(a).all()
 
 
-@pytest.mark.parametrize("method", ["and", "and_ode", "sd_ab"])
-def test_unported_methods_raise(stacks, method, monkeypatch):
-    """Every method runs now; what still raises, under each of them, is the
-    lever that needs the packed-layout kernels (ROADMAP.md B7)."""
-    from superdiff_tpu_torch.ops import flash_attention
-
+def test_unknown_method_raises(stacks):
     _, mod = stacks
-    monkeypatch.setattr(flash_attention, "_CROSS_IMPL", "nat")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        sd.generate(mod, method, "a cat", "a dog", batch_size=1, cfg=_cfg(True))
     with pytest.raises(ValueError, match="unknown method"):
         sd.generate(mod, "xor", "a cat", "a dog", batch_size=1, cfg=_cfg(True))

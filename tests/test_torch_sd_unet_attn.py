@@ -4,8 +4,12 @@
 32x32 latents give 1024-token self-attention at the first level (the flash
 family's kernels: the JAX side runs its Pallas kernels in interpret mode,
 the port their plain versions), 256- and 64-token rows below it and 77-token
-cross-attention everywhere. fp32 tolerance: 1e-5 relative to the output's
-largest magnitude, as ``test_torch_sd_unet.py``.
+cross-attention everywhere. ``flash_nat`` (every row to the packed
+``_kernel_mh_nat``) is held in ``test_torch_sd_unet_nat.py``, which keeps
+each file under a minute; the tiny UNet never reaches
+``_kernel_cross_packed`` (its rows are too short): ``test_torch_flash_packed.py``
+holds a ``TransformerBlock`` under that lever. fp32 tolerance: 1e-5 relative
+to the output's largest magnitude, as ``test_torch_sd_unet.py``.
 """
 
 import dataclasses
@@ -24,6 +28,10 @@ from superdiff_tpu_torch.models.sd.unet import ATTN_IMPLS, SDUNet, SDUNetConfig
 torch.set_num_threads(1)
 
 
+# flash_nat: test_torch_sd_unet_nat.py
+IMPLS = [impl for impl in ATTN_IMPLS if impl != "flash_nat"]
+
+
 @pytest.fixture(scope="module")
 def params():
     jnet = JaxSDUNet(dataclasses.replace(JaxSDUNetConfig.tiny(), ffn_impl="einsum"),
@@ -31,7 +39,7 @@ def params():
     return draw_params(jnet, jnp.zeros((1, 16, 16, 4)), jnp.zeros(()), jnp.zeros((1, 77, 64)))
 
 
-@pytest.mark.parametrize("attn_impl", ATTN_IMPLS)
+@pytest.mark.parametrize("attn_impl", IMPLS)
 def test_unet_matches_jax_under_attn_impl(params, attn_impl):
     jcfg = dataclasses.replace(JaxSDUNetConfig.tiny(), attn_impl=attn_impl, ffn_impl="einsum")
     jnet = JaxSDUNet(jcfg, dtype=jnp.float32)
@@ -52,6 +60,7 @@ def test_unet_matches_jax_under_attn_impl(params, attn_impl):
     ("flash_eod", {"flash_mha_eod": 5, "flash_mha": 27}),
     ("flash_eo", {"flash_mha_bhld": 5, "flash_mha": 27}),
     ("flash", {"flash_mha": 32}),
+    ("flash_nat", {"flash_mha": 32}),
     ("einsum", {}),
     ("dpa", {}),
 ])
@@ -77,7 +86,8 @@ def test_rows_route_by_attn_impl(params, monkeypatch, attn_impl, want):
 
 
 def test_flash_nat_and_unknown_attn_impl_raise():
-    with pytest.raises(NotImplementedError, match="ROADMAP.md B7"):
-        SDUNetConfig(attn_impl="flash_nat")
+    """``flash_nat`` is a name like the others now; an unknown one raises."""
+    assert SDUNetConfig(attn_impl="flash_nat").attn_impl in ATTN_IMPLS
     with pytest.raises(ValueError, match="attn_impl"):
         SDUNetConfig(attn_impl="sdpa")
+
