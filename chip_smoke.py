@@ -7,7 +7,9 @@ Phases, in order; any failed check raises and the script exits non-zero:
 
 1. build: compile every hand-written kernel (``superdiff_tpu_torch/ops/csrc``)
    with ``nvcc`` for sm_90a, one process per source, all started together;
-   print the build seconds and the card's name and power limit.
+   print the build seconds, the count of wgmma (HGMMA) and TMA (UTMALDG,
+   UTMASTG) instructions in the attention libraries (``cuobjdump -sass``,
+   where installed; none is a failure) and the card's name and power limit.
 2. kernels: call each kernel's wrapper on the card at a tiny shape and at
    every shape the main paths give it (512 and 768 px), and hold the result
    against its plain PyTorch version on the same inputs (tolerance printed
@@ -17,8 +19,14 @@ Phases, in order; any failed check raises and the script exits non-zero:
    the packed-layout names (``_kernel_mh_nat``, ``_kernel_cross_packed``) on
    views of packed projections, kv from 1 to 4096 (77 for the text
    cross-attention), the plain version looped over the batch.
+   The d-major kernel is held both to the plain version that rounds as
+   pvtd does (``_plain_1block(sum="bf16")`` on the transposed views) and to
+   the fp32 ``_reference_eod``.
    Time the kernel, the plain version and, where one exists, the single
-   PyTorch call computing the same function; work out the bound.
+   PyTorch call computing the same function; work out the bound. Every
+   attention row also gives its device time alone (launches captured in a
+   CUDA graph and replayed) and the wrapper's host cost (host clock over
+   launches without a synchronise).
 3. main path: SD-1.x UNet, CLIP text encoder and VAE decoder at their
    default (full) configs, random bf16 weights from ``--seed``, method
    ``or``, 512 px, latent batch 8 (context batch 24 with conditioning
@@ -64,8 +72,8 @@ Phases, in order; any failed check raises and the script exits non-zero:
    be finite.
 5. profiles and CPU references, after every timed run (a torch.profiler
    session slows the host's later launches for the rest of the process):
-   one 512 px SD sampler run, one 768 px step (device time by kernel family)
-   and 10 CIFAR SDE/OR steps are traced with torch.profiler, and a
+   one 512 px SD sampler run, one 768 px step (device time by kernel family
+   and the device's idle share) and 10 CIFAR SDE/OR steps are traced with torch.profiler, and a
    64x64-latent SD UNet forward and a batch-4 ScoreUNet forward on the card
    are each held against the same weights in fp32 on the host CPU, as is a
    full-width ``VAEEncoder`` forward at 256 px.
@@ -129,6 +137,72 @@ def time_ms(fn, budget_ms=300.0, most=50):
     return start.elapsed_time(end) / iters
 
 
+def graph_ms(fn, n=20, reps=5):
+    """Device ms per call of ``fn`` with the host out of the way: ``n`` calls
+    captured in one CUDA graph, replayed ``reps`` times between two events."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        for _ in range(n):
+            fn()
+    g.replay()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        g.replay()
+    end.record()
+    end.synchronize()
+    ms = start.elapsed_time(end) / (reps * n)
+    del g
+    torch.cuda.empty_cache()
+    return ms
+
+
+def host_ms(fn, n=50):
+    """Host ms per call of ``fn`` (the wrapper's checks, tensor maps and
+    launch): the host clock over ``n`` calls with no synchronisation."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    ms = (time.perf_counter() - t0) * 1e3 / n
+    torch.cuda.synchronize()
+    return ms
+
+
+def sass_facts(names=("flash_attention", "flash_attention_bhld")):
+    """Counts of wgmma (HGMMA) and TMA (UTMALDG / UTMASTG) instructions in
+    the built attention libraries, from ``cuobjdump -sass``; None where no
+    cuobjdump is installed."""
+    import shutil
+
+    from superdiff_tpu_torch.ops import _build
+
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not Path(tool).exists():
+        try:
+            import triton
+
+            tool = str(Path(triton.__file__).parent / "backends" / "nvidia" / "bin" / "cuobjdump")
+        except ImportError:
+            return None
+        if not Path(tool).exists():
+            return None
+    facts = {}
+    for n in names:
+        sass = subprocess.run([tool, "-sass", str(_build._target(n))], capture_output=True,
+                              text=True, timeout=300).stdout
+        facts[n] = {op: sass.count(op) for op in ("HGMMA", "UTMALDG", "UTMASTG", "HMMA")}
+    return facts
+
+
 def card_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -146,11 +220,14 @@ class Check:
         self.ms = self.plain_ms = self.bound_ms = 0.0
         self.library_ms = None
 
-    def add(self, shape, err, scale, tol, ms, plain_ms, bound_ms, library_ms, per_step):
-        """``scale``: the plain output's largest magnitude (for the relative error)."""
+    def add(self, shape, err, scale, tol, ms, plain_ms, bound_ms, library_ms, per_step,
+            split=None):
+        """``scale``: the plain output's largest magnitude (for the relative
+        error); ``split``: (device-only ms, host-only ms) of one launch."""
+        extra = "" if split is None else f"device-only {split[0]:.4f} ms  host {split[1]:.4f} ms  "
         log(f"  {self.name} {shape}: max_abs_err {err:.3e} rel {err / scale:.3e} "
             f"(tol {tol:.3e})  "
-            f"kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  bound {bound_ms:.4f} ms  "
+            f"kernel {ms:.4f} ms  {extra}plain {plain_ms:.4f} ms  bound {bound_ms:.4f} ms  "
             f"library {'-' if library_ms is None else f'{library_ms:.4f} ms'}  "
             f"x{per_step}/step")
         if not err <= tol:
@@ -204,6 +281,11 @@ def check_sd_or_step(dev):
 
 
 def check_flash(dev):
+    """The d-major kernel (``flash_mha_eod``) at a tiny shape, a partial q
+    tile and every 512 / 768 / 1024 px shape, held against two plain
+    versions: ``_plain_1block(sum="bf16")`` on the transposed views, which
+    rounds as pvtd does (q * scale, p and the output to bf16), and the fp32
+    ``_reference_eod``."""
     import torch
     import torch.nn.functional as F
 
@@ -211,8 +293,10 @@ def check_flash(dev):
 
     c = Check("flash_mha_eod", "superdiff_tpu_torch/ops/csrc/flash_attention.cu",
               "superdiff_tpu/ops/pallas/flash_attention.py:254", "operations")
-    # the last three: the 768 px level-1 rows, and levels 1 and 2 at 1024 px
-    shapes = (((2, 2, 40, 256), 0), ((2, 2, 80, 576), 0),
+    # the last four: the 768 px level-1 rows, and levels 1 and 2 at 1024 px
+    # (576 tokens: a partial last q tile of 128 rows, and at D = 80 a
+    # partial last kv tile of 128)
+    shapes = (((2, 2, 40, 256), 0), ((2, 2, 80, 576), 0), ((2, 2, 160, 576), 0),
               ((8, 8, 40, 4096), 1), ((24, 8, 40, 4096), 4), ((24, 8, 80, 1024), 5),
               ((24, 8, 80, 2304), 0), ((24, 8, 80, 4096), 0), ((24, 8, 160, 1024), 0))
     for (b, h, d, l), per_step in shapes:
@@ -222,20 +306,35 @@ def check_flash(dev):
         k = torch.randn(b, l, h, d, device=dev, generator=g).to(torch.bfloat16)
         k = k.permute(0, 2, 1, 3)
         vt = torch.randn(b, h, d, l, device=dev, generator=g).to(torch.bfloat16)
-        scale = d ** -0.5
+        sm_scale = d ** -0.5
         got = m.flash_mha_eod(qt, k, vt)
-        # the plain version in fp32 on the same (bf16-valued) inputs; the
-        # kernel rounds q*scale, p and its output to bf16 as the TPU kernel
-        # does: bf16-level error against the largest output magnitude
-        ref = m._reference_eod(qt.float(), k.float(), vt.float(), scale)
         torch.cuda.synchronize()
-        err = (got.float() - ref).abs().max().item()
-        scale = ref.abs().max().item()
-        tol = 2e-2 * scale
+        # (1) the plain version that rounds as pvtd, looped over (b, h)
+        # slices (a whole shape's logits do not fit the card): bf16-level,
+        # the accumulation order differs
+        err_bf, mag_bf = 0.0, 0.0
+        for i in range(b):
+            for j in range(h):
+                sl = (slice(i, i + 1), slice(j, j + 1))
+                ref = m._plain_1block(qt[sl].transpose(2, 3), k[sl], vt[sl].transpose(2, 3),
+                                      sm_scale, "bf16").transpose(2, 3).float()
+                err_bf = max(err_bf, (got[sl].float() - ref).abs().max().item())
+                mag_bf = max(mag_bf, ref.abs().max().item())
+        # (2) the fp32 reference on the same (bf16-valued) inputs
+        ref = m._reference_eod(qt.float(), k.float(), vt.float(), sm_scale)
+        err32 = (got.float() - ref).abs().max().item()
+        mag32 = ref.abs().max().item()
         del ref
         torch.cuda.empty_cache()
-        ms = time_ms(lambda: m.flash_mha_eod(qt, k, vt))
-        plain = time_ms(lambda: m._reference_eod(qt, k, vt, scale), budget_ms=500, most=5)
+        log(f"  flash_mha_eod {(b, h, d, l)}: vs the bf16-sum plain version {err_bf:.3e} "
+            f"(tol {1.2e-2 * mag_bf:.3e}); vs fp32 _reference_eod {err32:.3e} "
+            f"(tol {2e-2 * mag32:.3e})")
+        if not err32 <= 2e-2 * mag32:
+            raise AssertionError(f"flash_mha_eod {(b, h, d, l)}: fp32 error {err32}")
+        run = lambda: m.flash_mha_eod(qt, k, vt)
+        ms = time_ms(run)
+        split = (graph_ms(run), host_ms(run))
+        plain = time_ms(lambda: m._reference_eod(qt, k, vt, sm_scale), budget_ms=500, most=5)
         # the library yardstick on (B,H,L,D) copies made outside the timing
         q_, k_, v_ = qt.transpose(2, 3).contiguous(), k.contiguous(), vt.transpose(2, 3).contiguous()
         lib = time_ms(lambda: F.scaled_dot_product_attention(q_, k_, v_))
@@ -243,8 +342,8 @@ def check_flash(dev):
         ops = 4 * b * h * l * l * d / PEAK_BF16
         exps = b * h * l * l / PEAK_EXP2
         nbytes = 4 * b * h * l * d * 2 / PEAK_BYTES
-        c.add((b, h, d, l), err, scale, tol, ms, plain, max(ops, exps, nbytes) * 1e3, lib,
-              per_step)
+        c.add((b, h, d, l), err_bf, mag_bf, 1.2e-2 * mag_bf, ms, plain,
+              max(ops, exps, nbytes) * 1e3, lib, per_step, split)
         del qt, k, vt, got
         torch.cuda.empty_cache()
     return c
@@ -345,6 +444,7 @@ def check_bhld(dev):
             err = (got.float() - ref.float()).abs().max().item()
             tol = 1.2e-2 * scale
             ms = time_ms(run, budget_ms=200)
+            split = (graph_ms(run), host_ms(run))
             m._LONG_IMPL = "pvt1"
             plain_ms = time_once_ms(lambda: plain(name, q, k, v, block_q, block_k))
             q_, k_, v_ = q.contiguous(), k.contiguous(), v.contiguous()
@@ -354,7 +454,7 @@ def check_bhld(dev):
             exps = b * h * l * l / PEAK_EXP2
             nbytes = 4 * b * h * l * d * 2 / PEAK_BYTES
             c.add((b, h, l, d), err, scale, tol, ms, plain_ms, max(ops, exps, nbytes) * 1e3,
-                  lib, per_step)
+                  lib, per_step, split)
             del qkv, q, k, v, got, ref
             torch.cuda.empty_cache()
     return checks
@@ -367,6 +467,7 @@ _CROSS_512 = ((24, 4096, 40, 77, 5), (24, 1024, 80, 77, 5), (24, 256, 160, 77, 5
 PACKED_PLAN = {
     "_kernel_mh_nat": (
         ((2, 256, 40, 77, 0), (1, 200, 80, 1, 0), (1, 130, 160, 130, 0),
+         (1, 130, 40, 5, 0), (2, 200, 80, 128, 0), (1, 128, 160, 128, 0),
          (8, 4096, 40, 4096, 1), (24, 4096, 40, 4096, 4), (24, 1024, 80, 1024, 5),
          (24, 256, 160, 256, 5), (24, 64, 160, 64, 1)) + _CROSS_512
         # 768 px: the rows of one kv block
@@ -382,7 +483,7 @@ def check_packed(dev):
     ``_kernel_cross_packed``) on views of packed projections, as the UNet
     hands them over (self-attention: one (B, L, 3, H, D) projection; cross:
     q (B, L, H*D), k and v (B, 77, H*D)), each against its plain version
-    looped over the batch. Tiny shapes first (a partial q tile, kv 1, 77, 128
+    looped over the batch. Tiny shapes first (a partial q tile, kv 1, 5, 77, 128
     and 130; all-negative logits for the zero shift of ``_kernel_cross_packed``),
     then every shape of the 512 and 768 px steps. ``per_step``: the 512 px
     ``flash_nat`` step for ``_kernel_mh_nat``, the 512 px ``xpk`` step for
@@ -437,6 +538,7 @@ def check_packed(dev):
             err = (got.float() - ref.float()).abs().max().item()
             tol = 1.2e-2 * scale  # bf16-level, as the other attention rows
             ms = time_ms(run, budget_ms=200)
+            split = (graph_ms(run), host_ms(run))
             m._CROSS_IMPL = "einsum"
             plain_ms = time_once_ms(plain)
             q_, k_, v_ = (a.transpose(1, 2).contiguous() for a in (q, k, v))
@@ -446,7 +548,7 @@ def check_packed(dev):
             exps = b * h * lq * lk / PEAK_EXP2
             nbytes = 2 * (lq + lk) * b * h * d * 2 / PEAK_BYTES
             c.add((b, lq, h, d, lk, *neg), err, scale, tol, ms, plain_ms,
-                  max(ops, exps, nbytes) * 1e3, lib, per_step)
+                  max(ops, exps, nbytes) * 1e3, lib, per_step, split)
             del q, k, v, got, ref
             torch.cuda.empty_cache()
     return checks
@@ -559,21 +661,20 @@ def unet_reference_check(mod, dev):
         raise AssertionError(f"UNet card-vs-CPU relative error {rel}")
 
 
-def profile_step(sampler, ctxs, dev):
-    """Device time by kernel over one sampler run (torch.profiler); the
-    table goes to chiprun_out/chip_smoke_profile.txt, the top rows here."""
+def profile_step(sampler, ctxs, dev, steps):
+    """Device time by kernel family over one sampler run of ``steps`` steps
+    (torch.profiler), per step, and the device's idle share; the table goes
+    to chiprun_out/chip_smoke_profile.txt."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     gen = torch.Generator(device=dev).manual_seed(1)
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        x, _ = sampler(*ctxs, generator=gen)
-        torch.cuda.synchronize()
-    table = prof.key_averages().table(sort_by="cuda_time_total", row_limit=60)
-    (ROOT / "chiprun_out" / "chip_smoke_profile.txt").write_text(table)
-    log("  profile (one sampler run; top kernels by device time):")
-    for line in table.splitlines()[:28]:
-        log("   " + line[:160])
+    fams, wall = profile_by_family(lambda: sampler(*ctxs, generator=gen),
+                                   ROOT / "chiprun_out" / "chip_smoke_profile.txt")
+    total = sum(fams.values())
+    log(f"  profile (one 512 px or run, {steps} steps): {total / steps:.3f} ms device time "
+        f"per step, {wall / steps:.3f} ms wall per step under the profiler (device idle "
+        f"{1 - total / wall:.3f}); per step by family (ms): " +
+        ", ".join(f"{k} {v / steps:.4f}" for k, v in sorted(fams.items(), key=lambda kv: -kv[1])))
 
 
 def draw_nonzero_(model, seed):
@@ -639,7 +740,8 @@ def profile_by_family(run, path):
     events = prof.key_averages()
     path.write_text(events.table(sort_by="self_device_time_total", row_limit=60))
     families = (("fused_sde_step", ("fused_sde_step",)),
-                ("attention kernels", ("attn_bhld", "attn_eod")),
+                ("attention, wgmma core", ("attn_sm90",)),
+                ("attention, mma.sync modes 2-3", ("attn_bhld",)),
                 ("geglu_ffn_block", ("geglu_",)),
                 ("sd_or_step", ("or_step",)),
                 ("convolution", ("conv", "fprop", "implicit", "cudnn", "nchw", "nhwc")),
@@ -1231,6 +1333,15 @@ def main(argv=None) -> int:
         for line in o.splitlines():
             if "Used" in line or "spill" in line and " 0 bytes spill" not in line:
                 log(f"  {n}: {line.strip()}")
+    facts = sass_facts()
+    if facts is None:
+        log("  SASS: no cuobjdump found; wgmma / TMA use not shown")
+    else:
+        log("  SASS: " + "; ".join(f"{n} " + " ".join(f"{op} {c}" for op, c in f.items())
+                                   for n, f in facts.items()))
+        for n, f in facts.items():
+            if not (f["HGMMA"] and f["UTMALDG"]):
+                raise AssertionError(f"{n}: no wgmma / TMA instructions in the built library")
     log(f"  card: {card}")
 
     log("phase 2: kernels vs their plain versions")
@@ -1297,7 +1408,7 @@ def main(argv=None) -> int:
         raise AssertionError(f"the CIFAR path launched SD kernels: {others}")
 
     log("phase 5: profiles and CPU references")
-    profile_step(sampler, ctxs, dev)
+    profile_step(sampler, ctxs, dev, args.steps)
     sd_768_profile(sd, mod, args, dev)
     unet_reference_check(mod, dev)
     vae_encoder_reference_check(dev, args.seed)

@@ -27,40 +27,48 @@
 //   * scores are bf16 x bf16 products accumulated in fp32 (base-2 logits);
 //   * p is rounded to bf16 for P.V; fp32 accumulation, one divide at the end,
 //     bf16 output.
-// Modes 0, 1 and 3 make TWO PASSES over k (row max, then exp2 against V), so
-// every p = exp2(s - final row max), as a whole-row kv block gives it; modes
-// 0 and 1 differ only in whether the row sum adds p before or after its
-// rounding. Mode 2 makes ONE pass with the running (m, l, acc) in fp32
-// registers: alpha = exp2(m_prev - m_next) rescales l and acc at every kv
-// tile, l adds the fp32 p. Its kv tile (64) is not the TPU kernel's block_k:
-// the function is the same, only the maximum each bf16 p is rounded against
-// moves.
+// Modes 0 and 1 run on the wgmma + TMA core of attn_sm90.cuh, its
+// (B, H, L, D) instance: two passes over k (row max, then exp2 against V),
+// so every p = exp2(s - final row max), as a whole-row kv block gives it;
+// they differ only in whether the row sum adds p before (mode 0, on the
+// ALUs) or after (mode 1, on the tensor cores) its rounding to bf16. Views
+// are read through 4-D tensor maps, whose zero fill covers the kv tail and
+// the D = 40 contraction padding; the output is stored by TMA, packed where
+// the view is packed.
 //
-// Any kv length: the last kv tile may be partial. Its rows past Lk are
-// zero-filled in shared memory and never read from global memory (past Lk
-// lie the next batch's rows or the end of the allocation), their scores are
-// -inf (out of the max, p exactly 0), and V's zero rows keep 0 * V from
-// turning stale shared memory into NaN. The guards are a template parameter
-// (TAIL), compiled in only for kv that is not a multiple of 64: measured in
-// one call against the code without them, they cost mode 2 five per cent at
-// kv 9216 even where none fires.
+// Modes 2 and 3 run the mma.sync template below. Mode 3 makes two passes
+// like modes 0 and 1. Mode 2 makes ONE pass with the running (m, l, acc) in
+// fp32 registers: alpha = exp2(m_prev - m_next) rescales l and acc at every
+// kv tile, l adds the fp32 p. Its kv tile (64) is not the TPU kernel's
+// block_k: the function is the same, only the maximum each bf16 p is
+// rounded against moves.
+//
+// Any kv length: the last kv tile may be partial. In modes 2 and 3 its rows
+// past Lk are zero-filled in shared memory and never read from global memory
+// (past Lk lie the next batch's rows or the end of the allocation), their
+// scores are -inf (out of the max, p exactly 0), and V's zero rows keep
+// 0 * V from turning stale shared memory into NaN. The guards are a template
+// parameter (TAIL), compiled in only for kv that is not a multiple of 64:
+// measured in one call against the code without them, they cost mode 2 five
+// per cent at kv 9216 even where none fires.
 //
 // Bound on the H100 at the main-path shapes (H = 8): per (b, h) the work is
 // 4 Lq Lk D flops and Lq Lk exp2. The 9216-token rows (D = 40, B*H = 192) do
 // 1.63e10 exp2 (3.9 ms at 4.18e12/s) against 2.6 ms of tensor-core time, so
 // exp2 binds; at D = 160 (576 tokens) the tensor cores bind; at kv 77 (the
 // text cross-attention) the q and output streams bind.
-// Design: mma.sync m16n8k16 bf16, 8 warps of 16 query rows (128-row q tile,
-// the last one guarded when L % 128 != 0), 64-wide kv tiles double-buffered
-// with cp.async. K fragments are 32-bit shared loads, V (row-major, so the
-// P.V contraction runs down its rows) comes through ldmatrix.trans. D = 40
-// pads the QK^T contraction to 48 in shared memory; D = 160 takes 129 KB of
-// dynamic shared memory (opt-in attribute). wgmma and TMA come later.
+// Design of modes 2 and 3: mma.sync m16n8k16 bf16, 8 warps of 16 query rows
+// (128-row q tile, the last one guarded when L % 128 != 0), 64-wide kv tiles
+// double-buffered with cp.async. K fragments are 32-bit shared loads, V
+// (row-major, so the P.V contraction runs down its rows) comes through
+// ldmatrix.trans. D = 40 pads the QK^T contraction to 48 in shared memory;
+// D = 160 takes 129 KB of dynamic shared memory (opt-in attribute).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "attn_sm90.cuh"
 #include "mma_bf16.cuh"
 
 namespace {
@@ -286,7 +294,7 @@ attn_bhld_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
         const float f10 = exp2f(sv4[2] - m1), f11 = exp2f(sv4[3] - m1);
         const bf16 p00 = __float2bfloat16_rn(f00), p01 = __float2bfloat16_rn(f01);
         const bf16 p10 = __float2bfloat16_rn(f10), p11 = __float2bfloat16_rn(f11);
-        if constexpr (MODE == kSumBf16 || MODE == kCross) {
+        if constexpr (MODE == kCross) {
           l0 += __bfloat162float(p00) + __bfloat162float(p01);
           l1 += __bfloat162float(p10) + __bfloat162float(p11);
         } else {
@@ -360,8 +368,10 @@ template <int D>
 int launch_mode(int mode, const bf16* q, const bf16* k, const bf16* v, bf16* out, int B,
                 int H, int Lq, int Lk, const long long* st, float scale, cudaStream_t s) {
   switch (mode) {
-    case kSumF32: return launch_kv<D, kSumF32>(q, k, v, out, B, H, Lq, Lk, st, scale, s);
-    case kSumBf16: return launch_kv<D, kSumBf16>(q, k, v, out, B, H, Lq, Lk, st, scale, s);
+    case kSumF32:
+      return sdt::sm90::launch_bhld<D, false>(q, k, v, out, B, H, Lq, Lk, st, scale, s);
+    case kSumBf16:
+      return sdt::sm90::launch_bhld<D, true>(q, k, v, out, B, H, Lq, Lk, st, scale, s);
     case kOnline: return launch_kv<D, kOnline>(q, k, v, out, B, H, Lq, Lk, st, scale, s);
     case kCross:
       if (Lk > 128) return static_cast<int>(cudaErrorInvalidValue);
@@ -376,10 +386,13 @@ int launch_mode(int mode, const bf16* q, const bf16* k, const bf16* v, bf16* out
 // the wrapper raises on others.
 extern "C" int attn_bhld_supports(int D) { return D == 40 || D == 80 || D == 160; }
 
-// strides: 12 element strides, (batch, head, row) of q, k, v, out in turn.
-// mode: 0 single block / fp32 row sum, 1 single block / bf16 row sum,
-// 2 online softmax over the kv tiles, 3 short kv as _kernel_cross_packed
-// (Lk <= 128). Any Lk >= 1.
+// mode: 0 single block / fp32 row sum, 1 single block / bf16 row sum (both
+// on the wgmma + TMA core), 2 online softmax over the kv tiles, 3 short kv
+// as _kernel_cross_packed (Lk <= 128). Any Lk >= 1.
+// strides: modes 2 and 3, 12 element strides, (batch, head, row) of q, k, v,
+// out in turn; modes 0 and 1, the TMA geometry of q, k, v, out
+// (sdt::sm90::kGeomLen values each, flash_attention.py::_tma_geometry). A
+// refused tensor-map encoding returns a negative CUresult.
 extern "C" int attn_bhld_launch(const void* q, const void* k, const void* v, void* out,
                                 int B, int H, int D, int Lq, int Lk,
                                 const long long* strides, float scale, int mode,

@@ -35,6 +35,10 @@ The Hopper kernels are ``csrc/flash_attention.cu`` (d-major) and
 ``csrc/flash_attention_bhld.cu`` (one kernel in four modes: single block
 with the row sum of the fp32 p, single block with the row sum of the bf16 p,
 online softmax, and the short-kv mode of ``_kernel_cross_packed``). The
+d-major kernel and the two single-block modes run on one ``wgmma`` + TMA
+core, ``csrc/attn_sm90.cuh``, which reads every operand through a tensor
+map; :func:`_tma_geometry` computes the maps' geometry (and raises where the
+TMA cannot read a view), the library encodes them. The
 packed-layout kernels (``_kernel_mh_nat``, ``_kernel_cross_packed``) take
 (B, H, L, D) views of the packed (B, L, H*D) projections and write their
 output packed: no layout copy. A CUDA tensor is launched or raises (bf16,
@@ -60,11 +64,11 @@ import torch
 from . import _build
 
 LOG2_E = 1.4426950408889634
-_vp, _ci, _cl, _cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
+_vp, _ci, _cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
     "attn_eod_supports": (_ci, [_ci]),
     "attn_eod_tile": (_ci, []),
-    "attn_eod_launch": (_ci, [_vp] * 4 + [_ci] * 4 + [_cl] * 3 + [_cf, _vp]),
+    "attn_eod_launch": (_ci, [_vp] * 4 + [_ci] * 4 + [_vp, _cf, _vp]),
 }
 _SIGNATURES_BHLD = {
     "attn_bhld_supports": (_ci, [_ci]),
@@ -255,6 +259,71 @@ def _row_view(what, t):
     return t
 
 
+# --- TMA geometry of the wgmma core (csrc/attn_sm90.cuh) -----------------------
+
+_GEOM_LEN = 10  # per operand: 4 dims, 3 byte strides, 2 box dims, swizzle
+
+
+def _kv_tile(d: int, lk: int, dmajor: bool) -> int:
+    """kv rows per tile of the wgmma core (``Cfg::BK``): 128 for the
+    (B, H, L, D) rows of at most 128 kv at D <= 80 (one tile, its scores kept
+    between the passes), else 64 (``sdt::sm90::launch_bhld``)."""
+    return 128 if not dmajor and d <= 80 and lk <= 128 else 64
+
+
+def _tma_map(what, t, box, swizzle):
+    """TMA geometry of one 4-D view ``t`` whose last dim has unit stride:
+    dims innermost first, the byte strides of dims 1-3, the box and the
+    swizzle (0 or 128 bytes). Raises where the TMA cannot take the view: a
+    byte stride that is not a multiple of 16, or a base address not 16-byte
+    aligned. (A dim of size 1 is never stepped along; its stride is rounded
+    up to 16 bytes.)"""
+    if t.dim() != 4 or t.stride(3) != 1:
+        raise ValueError(f"{what}: a 4-D view with unit stride along its last dim, got "
+                         f"shape {tuple(t.shape)} strides {t.stride()}")
+    esz = t.element_size()
+    strides = []
+    for i in (2, 1, 0):
+        sb = t.stride(i) * esz
+        if t.shape[i] == 1:
+            sb = max(16, -(-sb // 16) * 16)
+        if sb % 16:
+            raise ValueError(f"{what}: the TMA needs byte strides that are multiples of 16; "
+                             f"got {sb} bytes along dim {i} (strides {t.stride()})")
+        strides.append(sb)
+    if t.data_ptr() % 16:
+        raise ValueError(f"{what}: the TMA needs a 16-byte aligned base address; got "
+                         f"{t.data_ptr():#x}")
+    return (t.shape[3], t.shape[2], t.shape[1], t.shape[0], *strides, *box, swizzle)
+
+
+def _tma_geometry(what, q, k, v, out, dmajor: bool):
+    """The TMA geometry of the four operands of the wgmma core, in the
+    order and with the boxes the kernel expects (``_GEOM_LEN`` values each).
+
+    ``dmajor``: q, v, out (B, H, D, L) and k (B, H, L, D), as
+    ``flash_mha_eod`` has them; else all four (B, H, L, D). K-major tiles
+    (rows, 64 columns) and the d-major q and v tiles (d rows, 64 tokens) are
+    read with the 128-byte swizzle that ``wgmma`` reads; the 64-column box
+    over D = 40 zero-fills the contraction padding, and rows past the
+    sequence come in as zeros. The output box is stored unswizzled and
+    clipped to the tensor."""
+    d = k.shape[3]
+    bk = _kv_tile(d, k.shape[2], dmajor)
+    if dmajor:
+        boxes = ((64, -(-d // 16) * 16, 128), (64, bk, 128), (64, d, 128), (64, d, 0))
+    else:
+        boxes = ((64, 64, 128), (64, bk, 128), (64, bk, 128), (d, 64, 0))
+    names = ("q", "k", "v", "out")
+    return tuple(x for name, t, (b0, b1, sw) in zip(names, (q, k, v, out), boxes)
+                 for x in _tma_map(f"{what} {name}", t, (b0, b1), sw))
+
+
+def _geometry_arg(geom):
+    """The table as a C array (a ``c_void_p`` argument of the launch)."""
+    return (ctypes.c_longlong * len(geom))(*geom)
+
+
 def _launch_bhld(q, k, v, sm_scale, name, out=None):
     """Launch ``flash_attention_bhld.cu`` in the mode of TPU kernel ``name``
     on (B, H, L, D) views; ``out``, a (B, H, Lq, D) view to write (else a new
@@ -276,11 +345,15 @@ def _launch_bhld(q, k, v, sm_scale, name, out=None):
     if out is None:
         out = torch.empty((b, h, lq, d), dtype=q.dtype, device=q.device)
     out = _row_view(what, out)
-    strides = (ctypes.c_longlong * 12)(*(s for t in (q, k, v, out) for s in t.stride()[:3]))
+    mode = _MODE_OF[name]
+    if mode in (0, 1):  # the wgmma core: tensor maps
+        table = _tma_geometry(what, q, k, v, out, dmajor=False)
+    else:
+        table = tuple(s for t in (q, k, v, out) for s in t.stride()[:3])
     p = _build.ptr
     err = lib.attn_bhld_launch(p(q), p(k), p(v), p(out), b, h, d, lq, lk,
-                               ctypes.cast(strides, _vp), float(sm_scale * LOG2_E),
-                               _MODE_OF[name], _build.stream_ptr(q))
+                               _geometry_arg(table), float(sm_scale * LOG2_E), mode,
+                               _build.stream_ptr(q))
     _build.check(err, what)
     flash_mha_bhld.launches[name] += 1
     return out
@@ -303,21 +376,16 @@ def _launch(qt, k, vt, sm_scale):
             f"flash_mha_eod: self-attention shapes qt/vt (B,H,D,L), k (B,H,L,D); "
             f"got {tuple(qt.shape)}, {tuple(k.shape)}, {tuple(vt.shape)}")
     _check_bf16("flash_mha_eod", qt, k, vt)
-    if not (qt.is_contiguous() and vt.is_contiguous()):
-        raise ValueError("flash_mha_eod: qt and vt must be contiguous (B,H,D,L)")
     lib = _build.load("flash_attention", _SIGNATURES)
     tile = lib.attn_eod_tile()
     if not lib.attn_eod_supports(d) or l % tile:
         raise ValueError(
             f"flash_mha_eod: kernel takes head_dim 40, 80 or 160 and L a "
             f"multiple of {tile}; got D={d}, L={l}")
-    sb, sh, sl, sd = k.stride()
-    if sd != 1 or sb % 8 or sh % 8 or sl % 8 or k.data_ptr() % 16:
-        raise ValueError("flash_mha_eod: k rows must be unit-stride along D and "
-                         "16-byte aligned")
-    out = torch.empty_like(qt)
+    out = torch.empty((b, h, d, l), dtype=qt.dtype, device=qt.device)
+    geom = _tma_geometry("flash_mha_eod", qt, k, vt, out, dmajor=True)
     p = _build.ptr
-    err = lib.attn_eod_launch(p(qt), p(k), p(vt), p(out), b, h, d, l, sb, sh, sl,
+    err = lib.attn_eod_launch(p(qt), p(k), p(vt), p(out), b, h, d, l, _geometry_arg(geom),
                               float(sm_scale * LOG2_E), _build.stream_ptr(qt))
     _build.check(err, "flash_mha_eod")
     flash_mha_eod.launches += 1
