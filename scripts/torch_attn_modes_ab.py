@@ -13,14 +13,17 @@ side uses its own C interface, on the same inputs at the SD shapes: the
 d-major rows of ``flash_mha_eod``, (B,H,L,D) views of one packed projection
 for modes 0, 1 and 2 (as ``flash_eo`` hands them over), packed views for
 ``_kernel_mh_nat`` and the text cross-attention of ``_kernel_cross_packed``
-(mode 3). Modes 2 and 3 must give outputs equal bit for bit; modes 0 and 1
-and the d-major kernel within 1.2e-2 of the parent's largest output (the
-kernel tolerance: a new accumulation order rounds p and the output to bf16
-at other places). Each shape is timed in turns, parent, change, change,
-parent, per round, by device time alone (``chip_smoke.graph_ms``: launches
-captured in a CUDA graph and replayed); one line per shape gives every time
-and the medians, and the last line is a JSON object with the medians, the
-card's name and power limit. Needs one CUDA card.
+(mode 3). Outputs are held to the parent's: bit for bit where
+``BIT_EXACT`` names the kernel (same arithmetic), else within 1.2e-2 of the
+parent's largest output (the kernel tolerance: another accumulation order,
+or another kv tile for the running maximum, rounds p and the output to bf16
+at other places); a failed hold is reported and the script goes on, then
+exits 1. Each shape is timed in turns, parent, change, change, parent, per
+round, by device time alone (``chip_smoke.graph_ms``: launches captured in
+a CUDA graph and replayed) and, for the packed rows, by the wrapper's host
+cost (``chip_smoke.host_ms``); one line per shape gives every time and the
+medians, and the last line is a JSON object with the medians, the card's
+name and power limit. Needs one CUDA card.
 """
 
 from __future__ import annotations
@@ -45,16 +48,34 @@ SHAPES = (
     ("eod", "_make_pvtd_kernel", (24, 8, 1024, 160, 1024)),
     ("bhld", "_kernel", (24, 8, 9216, 40, 9216)),
     ("bhld", "_kernel", (8, 8, 9216, 40, 9216)),
+    ("bhld", "_kernel", (8, 8, 16384, 40, 16384)),
     ("bhld", "_kernel_1block", (24, 8, 4096, 40, 4096)),
     ("bhld", "_make_pvt_kernel", (24, 8, 4096, 40, 4096)),
     ("bhld", "_kernel_mh", (24, 8, 576, 160, 576)),
     ("bhld", "_kernel_mh", (24, 8, 1024, 80, 1024)),
     ("packed", "_kernel_mh_nat", (24, 8, 4096, 40, 4096)),
     ("packed", "_kernel_mh_nat", (24, 8, 4096, 40, 77)),
+    ("packed", "_kernel_mh_nat", (24, 8, 1024, 80, 77)),
     ("packed", "_kernel_mh_nat", (24, 8, 256, 160, 77)),
     ("packed", "_kernel_cross_packed", (24, 8, 4096, 40, 77)),
+    ("packed", "_kernel_cross_packed", (24, 8, 9216, 40, 77)),
 )
-BIT_EXACT = ("_kernel", "_kernel_cross_packed")
+# the kernels whose arithmetic this change keeps: the single-block modes and
+# the d-major kernel (the online and cross modes moved onto the wgmma core),
+# but for the rows the library gives its short body (attn_bhld_body), whose
+# epilogue multiplies by 1 / l where the parent divided
+BIT_EXACT = ("_make_pvtd_kernel", "_kernel_1block", "_make_pvt_kernel", "_kernel_mh",
+             "_kernel_mh_nat")
+SHORT_BODY = 2
+
+
+def bit_exact(fa, kind, name, d, lk):
+    """Whether this row keeps the parent's arithmetic, as ``fa``'s library
+    launches it."""
+    if name not in BIT_EXACT or kind == "eod":
+        return name in BIT_EXACT
+    lib = fa._build.load("flash_attention_bhld", fa._SIGNATURES_BHLD)
+    return lib.attn_bhld_body(d, lk, fa._MODE_OF[name]) != SHORT_BODY
 
 
 def load_package(root: Path, alias: str):
@@ -106,7 +127,7 @@ def main(argv=None) -> int:
         print("torch_attn_modes_ab: no CUDA device", file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT))
-    from chip_smoke import card_line, graph_ms
+    from chip_smoke import card_line, graph_ms, host_ms
 
     mods = {"parent": load_package(args.parent.resolve(), "parent_superdiff_tpu_torch"),
             "change": load_package(ROOT, "change_superdiff_tpu_torch")}
@@ -120,7 +141,7 @@ def main(argv=None) -> int:
     card = card_line()
     print(f"{torch.cuda.get_device_name(0)}; {card}", flush=True)
     dev = torch.device("cuda", 0)
-    summary = {}
+    summary, failed = {}, []
     for kind, name, (b, h, lq, d, lk) in SHAPES:
         data = inputs(kind, b, h, lq, d, lk, dev)
         runs = {tag: launcher(fa, kind, name, data, d) for tag, fa in mods.items()}
@@ -129,29 +150,35 @@ def main(argv=None) -> int:
         diff = (outs["parent"].float() - outs["change"].float()).abs().max().item()
         mag = outs["parent"].float().abs().max().item()
         key = f"{name} {kind} {(b, h, lq, d, lk)}"
-        if name in BIT_EXACT:
-            if not torch.equal(outs["parent"], outs["change"]):
-                raise AssertionError(f"{key}: outputs differ by {diff}")
-            verdict = "bit-identical"
-        else:
-            if not diff <= 1.2e-2 * mag:
-                raise AssertionError(f"{key}: outputs differ by {diff} (largest {mag})")
-            verdict = f"max diff {diff:.3e} ({diff / mag:.2e} of the largest output)"
+        same = torch.equal(outs["parent"], outs["change"])
+        verdict = ("bit-identical" if same else
+                   f"max diff {diff:.3e} ({diff / mag:.2e} of the largest output)")
+        if not (same if bit_exact(mods["change"], kind, name, d, lk) else diff <= 1.2e-2 * mag):
+            failed.append(key)
+            verdict += " FAILS its hold"
         del outs
         times = {tag: [] for tag in runs}
+        hosts = {tag: [] for tag in runs}
         for _ in range(args.rounds):
             for tag in ("parent", "change", "change", "parent"):
                 times[tag].append(graph_ms(runs[tag]))
+                if kind == "packed":
+                    hosts[tag].append(host_ms(runs[tag]))
         med = {tag: statistics.median(ts) for tag, ts in times.items()}
         summary[key] = med
-        print(f"{key}: {verdict}; device ms parent " + ", ".join(f"{t:.4f}" for t in times["parent"])
-              + "; change " + ", ".join(f"{t:.4f}" for t in times["change"])
-              + f"; medians {med['parent']:.4f} / {med['change']:.4f} "
-              f"({med['change'] / med['parent'] - 1:+.2%})", flush=True)
+        line = (f"{key}: {verdict}; device ms parent " + ", ".join(f"{t:.4f}" for t in times["parent"])
+                + "; change " + ", ".join(f"{t:.4f}" for t in times["change"])
+                + f"; medians {med['parent']:.4f} / {med['change']:.4f} "
+                f"({med['change'] / med['parent'] - 1:+.2%})")
+        if kind == "packed":
+            host = {tag: statistics.median(ts) for tag, ts in hosts.items()}
+            summary[key] = {**med, "host_parent": host["parent"], "host_change": host["change"]}
+            line += f"; host ms medians {host['parent']:.4f} / {host['change']:.4f}"
+        print(line, flush=True)
         del data, runs
         torch.cuda.empty_cache()
-    print(json.dumps({"card": card, "median_device_ms": summary}), flush=True)
-    return 0
+    print(json.dumps({"card": card, "median_ms": summary, "failed": failed}), flush=True)
+    return 1 if failed else 0
 
 
 if __name__ == "__main__":

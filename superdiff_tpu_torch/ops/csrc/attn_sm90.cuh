@@ -1,38 +1,66 @@
-// One Hopper core for single-kv-block softmax attention (sm_90a): wgmma for
-// both products, TMA loads and stores, an mbarrier ring, warp specialisation.
+// One Hopper core for softmax attention (sm_90a): wgmma for both products,
+// TMA loads and stores, an mbarrier ring, warp specialisation.
 //
 // Serves two layouts from one kernel template:
 //   * d-major (DMAJOR = true): q, v and the output (B, H, D, L), k a
 //     (B, H, L, D) view -- _make_pvtd_kernel (flash_attention.cu);
 //   * (B, H, L, D) views with unit stride along D (any batch, head and row
-//     strides, so views of packed projections too) -- the single-block modes
-//     of flash_attention_bhld.cu (_kernel_1block, _kernel_mh, _kernel_mh_nat,
-//     _kernel_1block_mxsum, _make_pipe_kernel, _make_pvt_kernel).
+//     strides, so views of packed projections too) -- every mode of
+//     flash_attention_bhld.cu.
 //
 // Numerics, as the TPU bodies: q is scaled by bf16(sm_scale * log2 e) and
-// rounded to bf16 (once, in shared memory, before the first wgmma); scores
-// are fp32 base-2 logits; TWO PASSES over k: pass 1 computes Q.K^T and the
-// row max only, pass 2 recomputes the scores and forms p = exp2(s - final
-// max) (ex2.approx.ftz), rounded to bf16 (cvt.rn.bf16x2) for P.V; the row
-// sum adds the fp32 p on the ALUs (SUM_BF16 = false: _kernel_1block,
-// _kernel_mh, _kernel_mh_nat) or the bf16 p on the tensor cores
-// (SUM_BF16 = true: pvtd, mxsum, pipe, pvt -- the TPU kernels' ones row in
+// rounded to bf16 (in shared memory, before the first wgmma); scores are
+// fp32 base-2 logits; p = exp2(s - max) (ex2.approx.ftz), rounded to bf16
+// (cvt.rn.bf16x2) for P.V; fp32 accumulation, one divide per output (kShort:
+// one per row, then a multiply per output: an item's epilogue is on its
+// chain, and one divide per output ran its kv-77 rows about 20 % slower),
+// bf16 output. How a consumer walks kv (Body):
+//   kTwoPass  pass 1 computes Q.K^T and the row max only, pass 2 recomputes
+//             the scores, so every p is rounded against the final row max,
+//             as a whole-row kv block gives it (the single-block TPU bodies);
+//   kOnline   ONE pass with a running max m: per kv tile alpha =
+//             exp2(m - m_next) rescales the fp32 row sum and O, then
+//             p = exp2(s - m_next) (the multi-block _kernel; only the tile
+//             over which the maximum moves differs from its block_k);
+//   kShort    a row of at most 80 kv at D <= 80 (the 77-token text
+//             cross-attention): one 80-row kv tile whose scores stay in
+//             registers, K read and multiplied once.
+// The row sum (Sum) adds the fp32 p on the ALUs (kSumF32: _kernel,
+// _kernel_1block, _kernel_mh, _kernel_mh_nat) or the bf16 p on the tensor
+// cores (kSumBf16: pvtd, mxsum, pipe, pvt -- the TPU kernels' ones row in
 // V^T; here an m64n8k16 wgmma of P against a constant tile of ones, because
-// TMA rewrites V's tile, and any ones column in it, at every stage); fp32
-// accumulation, one divide, bf16 output.
+// TMA rewrites V's tile, and any ones column in it, at every stage);
+// kSumCross is kSumBf16 with _kernel_cross_packed's epilogue: the shift is
+// max(row max, 0) below 128 kv (its zero-padded kv columns give logits of
+// exactly 0) and the sum is rounded to bf16 before it divides.
 //
-// Block: CONS consumer warpgroups of 64 query rows each (three at D <= 80,
-// a 192-row q tile; two at D = 160 and for short rows, 128), then one
-// producer warpgroup, one thread of which issues every TMA load (the q
-// tiles once, then a ring of STAGES K (pass 1) or K+V (pass 2) tiles
-// completing on "full" mbarriers and released by the consumers on "empty"
-// ones). setmaxnreg moves registers from the producer to the consumers at
-// run time, but ptxas compiles every role within the launch bound's share
-// (168 registers at 384 threads, 128 at 512), so each consumer holds one S
-// tile: the warpgroups' turns, not a pipeline inside one, overlap the
-// tensor cores with the softmax. A row of one kv tile (a SHORT row of at
-// most 128 kv, the text cross-attention) keeps pass 1's scores in
-// registers: K is loaded and multiplied once, and V loads beside it.
+// Block: CONS consumer warpgroups of 64 query rows each, then one producer
+// warpgroup, one thread of which issues every TMA load. setmaxnreg moves
+// registers from the producer to the consumers at run time, but ptxas
+// compiles every role within the launch bound's share (168 registers at 384
+// threads, 128 at 512), so each consumer holds one S tile: the warpgroups'
+// turns, not a pipeline inside one, overlap the tensor cores with the
+// softmax.
+//   * kTwoPass / kOnline: grid (q tiles, H, B); the q tiles load once, then
+//     a ring of STAGES K (pass 1) or K+V (pass 2, and every kOnline tile)
+//     tiles completing on "full" mbarriers and released by the consumers on
+//     "empty" ones.
+//   * kShort is PERSISTENT: one block per SM walks a contiguous run of
+//     items (b, pair of adjacent heads, 64 query rows), q tiles innermost,
+//     the two consumers one head each. Consecutive items share (b, heads):
+//     K and V stay in shared memory (one or two K+V slots, the next pair's
+//     loading behind the current one). The q tiles come through a ring of
+//     Q_SLOTS slots that the producer refills as soon as an item's Q.K^T
+//     has read its slot, and the producer's other three warps scale each
+//     landed slot, so a consumer's chain per item starts at Q.K^T. Each
+//     output tile is stored by TMA from one of two staging tiles, whose
+//     read is waited for an item later. Measured at kv 77 on the packed
+//     (B, L, 8 * 40) projections: a launch per 128 query rows paid set-up,
+//     q latency and store drain serially, one block per SM (its registers),
+//     2x the time of one SDPA call; the persistent walk with one head per
+//     item, 1.5x (issue-bound, and the packed rows' 80-byte runs cut
+//     32-byte sectors of the q and output streams); head pairs make those
+//     runs whole sectors, 0.9x.
 // S = Q.K^T is an SS wgmma (m64 x BK kv columns, k16 steps over D); the S
 // accumulator is converted in place to the A-register fragment of P and
 // O += P.V is an RS wgmma (N = D). Operand layouts in shared memory are the
@@ -45,15 +73,18 @@
 // so neither layout needs a copy. The tensor maps' out-of-bounds zero fill
 // supplies the D = 40 contraction padding (a 64-column box over a 40-column
 // dim) and the kv tail (rows >= Lk read as zeros even where memory goes on,
-// as in packed views); scores past Lk are set to -inf. The output goes
-// through the consumer's q tile in shared memory (transposed there for the
-// d-major layout) and one TMA store, which clips a partial last q tile.
+// as in packed views); scores past Lk are set to -inf (kShort tests only
+// the 8-column group where Lk falls and skips the 16-column chunks wholly
+// past Lk: no exp2, no P.V step). The output goes through shared memory (the consumer's q tile, transposed there for the
+// d-major layout; kShort's staging tiles) and one TMA store, which clips a
+// partial last q tile.
 //
 // Bound on the H100 (4 Lq Lk D flops and Lq Lk exp2 per (b, h)): at D = 40
 // the exp2 on the SFUs (16 / clock / SM) binds, at D = 80 and 160 the tensor
-// cores do. What this core issues on top: pass 1's second Q.K^T, the D = 40
-// contraction padded to 48, and the m64n8 row-sum products; at D = 40 that
-// tensor work (about 1.2x the exp2 time at peak) and the exp2 overlap only
+// cores do, at kv <= 128 the q and output streams do. What this core issues
+// on top: kTwoPass's second Q.K^T, kOnline's rescale of O per kv tile, the
+// D = 40 contraction padded to 48, the m64n8 row-sum products, kShort's
+// 80-column score tile; at D = 40 the tensor work and the exp2 overlap only
 // across warpgroups.
 #pragma once
 
@@ -63,26 +94,36 @@
 #include <math.h>
 #include <stdint.h>
 
+#include <mutex>
+
 namespace sdt {
 namespace sm90 {
+// Internal linkage: every library built from this header has its own
+// kernels, map cache and launch state. (A static local of an inline or
+// template function would otherwise be one object for the whole process,
+// shared by every library that includes the header, of whatever version.)
+namespace {
 
 using bf16 = __nv_bfloat16;
 
 constexpr int kSmemBudget = 220 * 1024;     // of the 227 KB a block may use
 
-// SHORT: a row of at most 128 kv at D <= 80 (the text cross-attention and
-// the short self-attention rows, (B, H, L, D) only) takes one 128-row kv
-// tile, whose scores stay in registers between the passes.
-template <int D, bool DMAJOR, bool SHORT = false>
+enum Body : int { kTwoPass, kOnline, kShort };
+enum Sum : int { kSumF32, kSumBf16, kSumCross };
+
+template <int D, bool DMAJOR, int BODY>
 struct Cfg {
+  static constexpr bool SHORT = BODY == kShort;
   // consumer warpgroups of 64 query rows: three where their state fits the
   // 128 registers a thread of a 512-thread block may hold (one S tile, P,
-  // O), two at D = 160 (O alone is 80 registers) and for SHORT (a 128-wide
-  // S tile); more warpgroups in turn keep the tensor cores and the SFUs
+  // O), else two (D = 160: O alone is 80 registers; kOnline at D = 80,
+  // with a 128-wide S tile); more warpgroups in turn keep the tensor cores and the SFUs
   // busier than deeper pipelining inside one (measured: two S register sets
-  // spilled and ran slower)
-  static constexpr int CONS = D > 80 || SHORT ? 2 : 3;
-  static constexpr int BQ = 64 * CONS;            // query rows per block
+  // spilled and ran slower). kShort: two, on the same 64 rows of two
+  // adjacent heads, whose packed rows (160 or 320 bytes) are whole 32-byte
+  // sectors of the q and output streams.
+  static constexpr int CONS = !SHORT && (D == 40 || (D == 80 && BODY == kTwoPass)) ? 3 : 2;
+  static constexpr int BQ = SHORT ? 64 : 64 * CONS;  // query rows per block (kShort: per item)
   static constexpr int THREADS = 128 * (CONS + 1);
   // registers a thread may hold (ptxas compiles every role within the
   // launch bound's share, whatever setmaxnreg asks), and the setmaxnreg
@@ -90,7 +131,9 @@ struct Cfg {
   static constexpr int REGS = 65536 / THREADS / 8 * 8;
   static constexpr int PRODUCER_REGS = 40;
   static constexpr int CONSUMER_REGS = (REGS + (REGS - PRODUCER_REGS) / CONS) / 8 * 8;
-  static constexpr int BK = SHORT ? 128 : 64;     // kv rows per tile
+  // kv rows per tile (kShort: the smallest multiple of 16 that holds the
+  // 77-token text context)
+  static constexpr int BK = SHORT ? 80 : BODY == kOnline && D <= 80 ? 128 : 64;
   static_assert(CONS <= 3, "three ones tiles fit beside the barriers");
   static constexpr int DP = (D + 15) / 16 * 16;   // Q.K^T contraction (zeros past D)
   static constexpr int KS = DP / 16;              // its k16 steps
@@ -98,13 +141,22 @@ struct Cfg {
   static constexpr int Q_BYTES = DMAJOR ? DP * 128 : NB * 64 * 128;  // per consumer
   static constexpr int K_BYTES = NB * BK * 128;
   static constexpr int V_BYTES = DMAJOR ? (BK / 64) * D * 128 : NB * BK * 128;
-  static constexpr int STAGE = K_BYTES + V_BYTES;
-  static constexpr int Q_ALL = CONS * Q_BYTES;
-  static constexpr int STAGES_FIT = (kSmemBudget - 2048 - Q_ALL) / STAGE;
-  static constexpr int STAGES = STAGES_FIT > 4 ? 4 : STAGES_FIT;
-  // 1024 of alignment slack, 1024 of barriers and ones tiles, then the tiles
-  static constexpr int SMEM = 2048 + Q_ALL + STAGES * STAGE;
-  static_assert(STAGES >= 2, "a ring of at least two stages");
+  static constexpr int KV_BYTES = K_BYTES + V_BYTES;
+  static constexpr int STAGE = SHORT ? CONS * KV_BYTES : KV_BYTES;  // kShort: each consumer's head
+  static constexpr int Q_ALL = CONS * Q_BYTES;    // one q slot: every consumer's tile
+  static constexpr int OUT_BYTES = SHORT ? 64 * D * 2 : 0;  // kShort: a staging tile
+  // kShort: one or two K+V slots (two where two q slots fit beside them),
+  // then as many q slots as fit, at most four; the streamed bodies: one q
+  // slot, a ring of at most four stages
+  static constexpr int BASE = 2048 + 2 * CONS * OUT_BYTES;  // alignment slack, barriers, ones, staging
+  static constexpr int SHORT_STAGES = (kSmemBudget - BASE - 2 * Q_ALL) / STAGE >= 2 ? 2 : 1;
+  static constexpr int Q_SLOTS_FIT = (kSmemBudget - BASE - SHORT_STAGES * STAGE) / Q_ALL;
+  static constexpr int Q_SLOTS = !SHORT ? 1 : Q_SLOTS_FIT > 4 ? 4 : Q_SLOTS_FIT;
+  static constexpr int STAGES_FIT = (kSmemBudget - BASE - Q_ALL) / STAGE;
+  static constexpr int STAGES = SHORT ? SHORT_STAGES : STAGES_FIT > 4 ? 4 : STAGES_FIT;
+  static constexpr int SMEM = BASE + Q_SLOTS * Q_ALL + STAGES * STAGE;
+  static_assert(STAGES >= (SHORT ? 1 : 2) && Q_SLOTS >= 1 && Q_SLOTS <= 4, "the rings");
+  static_assert(!SHORT || (!DMAJOR && D <= 80), "kShort: (B, H, L, D) rows at D <= 80");
   static_assert(D % 8 == 0 && D <= 256, "wgmma N = D");
 };
 
@@ -154,6 +206,7 @@ __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, u
       : "memory");
 }
 
+// one bulk group; the caller waits for its read (cp.async.bulk.wait_group.read)
 __device__ __forceinline__ void tma_store(const CUtensorMap* map, uint32_t src, int c0, int c1,
                                           int c2, int c3) {
   asm volatile(
@@ -161,7 +214,6 @@ __device__ __forceinline__ void tma_store(const CUtensorMap* map, uint32_t src, 
       ::"l"(reinterpret_cast<uint64_t>(map)), "r"(src), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
       : "memory");
   asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
-  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
 }
 
 // generic-proxy shared-memory writes made visible to wgmma and TMA
@@ -218,6 +270,24 @@ __device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
   return r;
 }
 
+// x * bf16(scale), rounded to bf16, in place over the n16 16-byte chunks of
+// a shared-memory tile from chunk i0 in steps of `step` (elementwise: the
+// swizzle does not matter; the zero fill stays zero)
+__device__ __forceinline__ void scale_bf16(unsigned char* p, int n16, int i0, int step,
+                                           float scale) {
+  const float sc = __bfloat162float(__float2bfloat16_rn(scale));
+  for (int i = i0; i < n16; i += step) {
+    uint4 v = reinterpret_cast<uint4*>(p)[i];
+    uint32_t* w = reinterpret_cast<uint32_t*>(&v);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const float2 f = __bfloat1622float2(*reinterpret_cast<__nv_bfloat162*>(&w[j]));
+      w[j] = pack_bf16x2(f.x * sc, f.y * sc);
+    }
+    reinterpret_cast<uint4*>(p)[i] = v;
+  }
+}
+
 // wgmma shared-memory matrix descriptor: start address, leading and stride
 // byte offsets (16-byte units), layout (0 no swizzle, 1 128-byte swizzle)
 __device__ __forceinline__ uint64_t desc(uint32_t addr, uint32_t lbo, uint32_t sbo,
@@ -249,6 +319,16 @@ __device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da, uint64
       "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
       "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, %32, %33, p, 1, 1, %35, %36;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d), "n"(TA), "n"(TB));
+}
+
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_ss_n80(float (&d)[40], uint64_t da, uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %42, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n80k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39}, %40, %41, p, 1, 1, %43, %44;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39])
       : "l"(da), "l"(db), "r"(scale_d), "n"(TA), "n"(TB));
 }
 
@@ -310,6 +390,7 @@ template <int N, int TA, int TB>
 __device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t da, uint64_t db,
                                          int scale_d) {
   if constexpr (N == 64) wgmma_ss_n64<TA, TB>(d, da, db, scale_d);
+  else if constexpr (N == 80) wgmma_ss_n80<TA, TB>(d, da, db, scale_d);
   else wgmma_ss_n128<TA, TB>(d, da, db, scale_d);
 }
 
@@ -326,59 +407,91 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], const uint32_t (&a)[
 //
 // Tensor maps (4-D, innermost first): q, k, v, out. (B, H, L, D) operands
 // and the d-major k are (D, L, H, B); the d-major q, v and out are
-// (L, D, H, B). Grid (ceil(Lq / BQ), H, B).
+// (L, D, H, B). Grid (ceil(Lq / BQ), H, B), or for kShort one block per SM
+// (at most one per item). The maps are __grid_constant__ parameters of the
+// __global__ entries below, taken here by reference (TMA reads them in
+// parameter space).
 
-template <int D, bool DMAJOR, bool SUM_BF16, bool SHORT>
-__global__ void __launch_bounds__((Cfg<D, DMAJOR, SHORT>::THREADS), 1)
-attn_sm90_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
-                 const __grid_constant__ CUtensorMap tv, const __grid_constant__ CUtensorMap to,
-                 int Lq, int Lk, float scale) {
-  using C = Cfg<D, DMAJOR, SHORT>;
-  constexpr int BK = C::BK, ST = C::STAGES, kConsumers = C::CONS;
+template <int D, bool DMAJOR, int BODY, int SUM>
+__device__ __forceinline__ void attn_body(const CUtensorMap& tq, const CUtensorMap& tk,
+                                          const CUtensorMap& tv, const CUtensorMap& to,
+                                          int Lq, int Lk, int H, int B, float scale) {
+  using C = Cfg<D, DMAJOR, BODY>;
+  constexpr int BK = C::BK, ST = C::STAGES, QS = C::Q_SLOTS, kConsumers = C::CONS;
+  constexpr bool SUM_BF16 = SUM != kSumF32;
   extern __shared__ unsigned char smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
   const uint32_t base = (raw + 1023) & ~1023u;  // the swizzle atoms want 1024-byte alignment
   unsigned char* gbase = smem_raw + (base - raw);
-  const uint32_t bar_q = base, bar_full = base + 8, bar_empty = base + 8 + 8 * ST;
+  const uint32_t bar_full = base, bar_empty = base + 64;   // the K / V ring
+  const uint32_t bar_qfull = base + 128, bar_qempty = base + 192;  // the q slots
+  const uint32_t bar_qready = base + 224;       // kShort: a q slot scaled
   const uint32_t ones = base + 256;             // one 256-byte tile per consumer (<= 3)
-  const uint32_t sq = base + 1024;              // q tile of consumer w at sq + w * Q_BYTES
-  const uint32_t sst = sq + C::Q_ALL;           // stage s: K at sst + s * STAGE, then V
+  const uint32_t sq = base + 1024;              // q slot j, consumer w: sq + j * Q_ALL + w * Q_BYTES
+  const uint32_t sst = sq + QS * C::Q_ALL;      // stage s: K at sst + s * STAGE, then V
+  const uint32_t sout = sst + ST * C::STAGE;    // kShort: staging tile j of consumer w at + (j * CONS + w) * OUT_BYTES
 
   const int tid = threadIdx.x, wg = __shfl_sync(0xffffffffu, tid / 128, 0);
-  const int q0 = blockIdx.x * C::BQ, h = blockIdx.y, b = blockIdx.z;
   const int n_tiles = (Lk + BK - 1) / BK;
+  // kShort: this block's run of items (b, group of CONS heads, q tile),
+  // q tiles innermost: `first_item` sets the first and returns how many,
+  // `next` steps without a division
+  const int n_qt = (Lq + C::BQ - 1) / C::BQ, n_hg = (H + kConsumers - 1) / kConsumers;
+  struct Item {
+    int qt, hg, b;
+  };
+  auto first_item = [&](Item& x) {
+    const long long n_items = static_cast<long long>(n_qt) * n_hg * B;
+    const int first = static_cast<int>(blockIdx.x * n_items / gridDim.x);
+    x = {first % n_qt, first / n_qt % n_hg, first / n_qt / n_hg};
+    return static_cast<int>((blockIdx.x + 1) * n_items / gridDim.x) - first;
+  };
+  auto next = [&](Item& x) {
+    if (++x.qt == n_qt) {
+      x.qt = 0;
+      if (++x.hg == n_hg) {
+        x.hg = 0;
+        ++x.b;
+      }
+    }
+  };
 
   if (tid == 0) {
-    mbar_init(bar_q, 1);
     for (int s = 0; s < ST; ++s) {
       mbar_init(bar_full + 8 * s, 1);
       mbar_init(bar_empty + 8 * s, kConsumers * 4);  // lane 0 of every consumer warp
+    }
+    for (int s = 0; s < QS; ++s) {
+      mbar_init(bar_qfull + 8 * s, 1);
+      mbar_init(bar_qempty + 8 * s, kConsumers * 4);
+      mbar_init(bar_qready + 8 * s, 3);                // the producer's warps 1-3
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
 
   if (wg == kConsumers) {
-    // ---- producer: one thread keeps the ring full ----
+    // ---- producer: one thread keeps the rings full ----
     setmaxnreg_dec<C::PRODUCER_REGS>();
     if (tid == kConsumers * 128) {
-      mbar_expect_tx(bar_q, C::Q_ALL);
-      for (int w = 0; w < kConsumers; ++w) {
-        const uint32_t dst = sq + w * C::Q_BYTES;
-        if constexpr (DMAJOR) {
-          tma_load(dst, &tq, bar_q, q0 + 64 * w, 0, h, b);
-        } else {
+      // every consumer's q tile of the item at rows q0.. into slot `slot`
+      auto load_q = [&](int slot, int q0, int h, int b) {
+        const uint32_t bar = bar_qfull + 8 * slot, dst = sq + slot * C::Q_ALL;
+        mbar_expect_tx(bar, C::Q_ALL);
+        for (int w = 0; w < kConsumers; ++w) {
+          if constexpr (DMAJOR) {
+            tma_load(dst + w * C::Q_BYTES, &tq, bar, q0 + 64 * w, 0, h, b);
+          } else {
 #pragma unroll
-          for (int nb = 0; nb < C::NB; ++nb)
-            tma_load(dst + nb * 64 * 128, &tq, bar_q, nb * 64, q0 + 64 * w, h, b);
+            for (int nb = 0; nb < C::NB; ++nb)
+              tma_load(dst + w * C::Q_BYTES + nb * 64 * 128, &tq, bar, nb * 64, q0 + 64 * w, h, b);
+          }
         }
-      }
-      for (int it = 0; it < 2 * n_tiles; ++it) {
-        const int s = it % ST;
-        mbar_wait(bar_empty + 8 * s, ((it / ST) & 1) ^ 1);
-        const bool with_v = it >= n_tiles;   // pass 2
-        const bool with_k = !with_v || n_tiles > 1;  // one tile: its scores stay in registers
-        const int kv0 = (with_v ? it - n_tiles : it) * BK;
+      };
+      // K and / or V of the kv tile at kv0 into stage s, once the consumers released it
+      auto load_kv = [&](int n, int kv0, bool with_k, bool with_v, int h, int b) {
+        const int s = n % ST;
+        mbar_wait(bar_empty + 8 * s, ((n / ST) & 1) ^ 1);
         const uint32_t bar = bar_full + 8 * s, sk = sst + s * C::STAGE, sv = sk + C::K_BYTES;
         mbar_expect_tx(bar, (with_k ? C::K_BYTES : 0) + (with_v ? C::V_BYTES : 0));
         if (with_k) {
@@ -394,41 +507,92 @@ attn_sm90_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__
             for (int nb = 0; nb < C::NB; ++nb) tma_load(sv + nb * BK * 128, &tv, bar, nb * 64, kv0, h, b);
           }
         }
+      };
+      if constexpr (C::SHORT) {
+        // K and V of the group's heads once per (b, group), then the item's
+        // q tiles, one per head, into the next slot
+        Item x;
+        const int n_mine = first_item(x);
+        for (int n = 0, n_kv = 0; n < n_mine; ++n, next(x)) {
+          const int h0 = x.hg * kConsumers, heads = min(kConsumers, H - h0);
+          if (n == 0 || x.qt == 0) {
+            const int s = n_kv % ST;
+            mbar_wait(bar_empty + 8 * s, ((n_kv / ST) & 1) ^ 1);
+            const uint32_t bar = bar_full + 8 * s;
+            mbar_expect_tx(bar, heads * C::KV_BYTES);
+            for (int w = 0; w < heads; ++w) {
+              const uint32_t sk = sst + s * C::STAGE + w * C::KV_BYTES, sv = sk + C::K_BYTES;
+#pragma unroll
+              for (int nb = 0; nb < C::NB; ++nb) {
+                tma_load(sk + nb * BK * 128, &tk, bar, nb * 64, 0, h0 + w, x.b);
+                tma_load(sv + nb * BK * 128, &tv, bar, nb * 64, 0, h0 + w, x.b);
+              }
+            }
+            ++n_kv;
+          }
+          const int slot = n % QS;
+          mbar_wait(bar_qempty + 8 * slot, ((n / QS) & 1) ^ 1);
+          const uint32_t bar = bar_qfull + 8 * slot;
+          mbar_expect_tx(bar, heads * C::Q_BYTES);
+          for (int w = 0; w < heads; ++w) {
+#pragma unroll
+            for (int nb = 0; nb < C::NB; ++nb)
+              tma_load(sq + slot * C::Q_ALL + w * C::Q_BYTES + nb * 64 * 128, &tq, bar, nb * 64,
+                       x.qt * C::BQ, h0 + w, x.b);
+          }
+        }
+      } else {
+        const int h = blockIdx.y, b = blockIdx.z;
+        load_q(0, blockIdx.x * C::BQ, h, b);
+        // kTwoPass: K alone in pass 1, then K and V (V alone where the one
+        // tile's scores stay in registers); kOnline: K and V, one pass
+        const int n_loads = BODY == kOnline ? n_tiles : 2 * n_tiles;
+        for (int it = 0; it < n_loads; ++it) {
+          const bool pass2 = BODY == kOnline || it >= n_tiles;
+          const bool with_k = BODY == kOnline || !pass2 || n_tiles > 1;
+          load_kv(it, (it < n_tiles ? it : it - n_tiles) * BK, with_k, pass2, h, b);
+        }
+      }
+    } else if constexpr (C::SHORT) {
+      // kShort: warps 1-3 scale each landed q slot for the consumers, so
+      // their chain per item starts at Q.K^T
+      if (tid >= kConsumers * 128 + 32) {
+        const int lane = tid % 32;
+        Item x;
+        const int n_mine = first_item(x);
+        for (int n = 0; n < n_mine; ++n) {
+          const int slot = n % QS;
+          mbar_wait(bar_qfull + 8 * slot, (n / QS) & 1);
+          scale_bf16(gbase + (sq + slot * C::Q_ALL - base), C::Q_ALL / 16,
+                     tid - kConsumers * 128 - 32, 96, scale);
+          fence_proxy_async();
+          __syncwarp();
+          if (lane == 0) mbar_arrive(bar_qready + 8 * slot);
+        }
       }
     }
   } else {
-    // ---- consumer warpgroup `wg`: 64 query rows ----
+    // ---- consumer warpgroup `wg`: 64 query rows of each item ----
     setmaxnreg_inc<C::CONSUMER_REGS>();
     const int t = tid % 128, warp = t / 32, lane = tid % 32;
     const int g = lane / 4, tq4 = lane % 4;
-    const uint32_t my_q = sq + wg * C::Q_BYTES, my_ones = ones + wg * 256;
-    unsigned char* my_q_ptr = gbase + (my_q - base);
+    const uint32_t my_ones = ones + wg * 256;
 
     if constexpr (SUM_BF16) {
       if (t < 64) reinterpret_cast<uint32_t*>(gbase + (my_ones - base))[t] = 0x3F803F80u;
-    }
-    // q * bf16(scale), rounded to bf16, in place (elementwise: the swizzle
-    // does not matter; the zero fill stays zero)
-    mbar_wait(bar_q, 0);
-    {
-      const __nv_bfloat162 sc2 = __float2bfloat162_rn(scale);
-      const float2 scf = __bfloat1622float2(sc2);
-      for (int i = t; i < C::Q_BYTES / 16; i += 128) {
-        uint4 v = reinterpret_cast<uint4*>(my_q_ptr)[i];
-        uint32_t* w = reinterpret_cast<uint32_t*>(&v);
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          float2 f = __bfloat1622float2(*reinterpret_cast<__nv_bfloat162*>(&w[j]));
-          w[j] = pack_bf16x2(f.x * scf.x, f.y * scf.x);
-        }
-        reinterpret_cast<uint4*>(my_q_ptr)[i] = v;
+      if constexpr (C::SHORT) {  // (the other bodies' scale_q fences it)
+        fence_proxy_async();
+        named_bar_sync(1 + wg, 128);
       }
     }
-    fence_proxy_async();
-    named_bar_sync(1 + wg, 128);
-
-    // S = (q * scale) K^T over one kv tile (stage s), fp32
-    auto qk = [&](float (&sacc)[BK / 2], uint32_t sk) {
+    // this consumer's q tile scaled in place, made visible to wgmma
+    auto scale_q = [&](uint32_t my_q) {
+      scale_bf16(gbase + (my_q - base), C::Q_BYTES / 16, t, 128, scale);
+      fence_proxy_async();
+      named_bar_sync(1 + wg, 128);
+    };
+    // S = (q * scale) K^T over one kv tile, fp32
+    auto qk = [&](float (&sacc)[BK / 2], uint32_t my_q, uint32_t sk) {
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < C::KS; ++kk) {
@@ -449,54 +613,67 @@ attn_sm90_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__
     auto mask = [&](float (&sacc)[BK / 2], int kv0) {
       if (kv0 + BK > Lk) {
 #pragma unroll
-        for (int i = 0; i < BK / 2; ++i) {
-          if (kv0 + 8 * (i / 4) + 2 * tq4 + (i & 1) >= Lk) sacc[i] = -INFINITY;
+        for (int c = 0; c < BK / 8; ++c) {  // 8-column groups
+          const int col0 = kv0 + 8 * c;
+          // kShort (the one tile of a row ending inside it): only the group
+          // where Lk falls is tested; the others test every column
+          if (C::SHORT && col0 >= Lk) {
+#pragma unroll
+            for (int i = 4 * c; i < 4 * c + 4; ++i) sacc[i] = -INFINITY;
+          } else if (!C::SHORT || col0 + 8 > Lk) {
+#pragma unroll
+            for (int i = 4 * c; i < 4 * c + 4; ++i) {
+              if (col0 + 2 * tq4 + (i & 1) >= Lk) sacc[i] = -INFINITY;
+            }
+          }
         }
       }
     };
-    auto release = [&](int s) {
-      if (lane == 0) mbar_arrive(bar_empty + 8 * s);
-    };
-
-    float sacc[BK / 2];
-    // pass 1: the row max (rows g and g + 8 of this warp's 16)
-    float m0 = -INFINITY, m1 = -INFINITY;
-    for (int it = 0; it < n_tiles; ++it) {
-      const int s = it % ST;
-      mbar_wait(bar_full + 8 * s, (it / ST) & 1);
-      qk(sacc, sst + s * C::STAGE);
-      release(s);
-      mask(sacc, it * BK);
+    // this thread's share of the tile's row max (rows g and g + 8 of its
+    // warp's 16), and the max over the quad that holds a row
+    auto tile_max = [&](const float (&sacc)[BK / 2], float& m0, float& m1) {
 #pragma unroll
       for (int i = 0; i < BK / 2; i += 4) {
         m0 = fmaxf(m0, fmaxf(sacc[i], sacc[i + 1]));
         m1 = fmaxf(m1, fmaxf(sacc[i + 2], sacc[i + 3]));
       }
-    }
+    };
+    auto quad_max = [&](float& m0, float& m1) {
 #pragma unroll
-    for (int off = 1; off < 4; off <<= 1) {
-      m0 = fmaxf(m0, __shfl_xor_sync(0xffffffffu, m0, off));
-      m1 = fmaxf(m1, __shfl_xor_sync(0xffffffffu, m1, off));
-    }
-
-    // pass 2: p = exp2(s - max), bf16, against V; the row sum
-    float o[D / 2];
-#pragma unroll
-    for (int i = 0; i < D / 2; ++i) o[i] = 0.0f;
-    float lsum[4] = {0.0f, 0.0f, 0.0f, 0.0f};  // SUM_BF16: P . ones (m64n8)
-    float l0 = 0.0f, l1 = 0.0f;                // else: this thread's share of the fp32 sum
-    const uint64_t ones_desc = desc(my_ones, 128, 256, 0);
-    for (int j = 0; j < n_tiles; ++j) {
-      const int it = n_tiles + j, s = it % ST;
-      const uint32_t sk = sst + s * C::STAGE, sv = sk + C::K_BYTES;
-      mbar_wait(bar_full + 8 * s, (it / ST) & 1);
-      if (n_tiles > 1) {  // else sacc still holds the one tile's masked scores
-        qk(sacc, sk);
-        mask(sacc, j * BK);
+      for (int off = 1; off < 4; off <<= 1) {
+        m0 = fmaxf(m0, __shfl_xor_sync(0xffffffffu, m0, off));
+        m1 = fmaxf(m1, __shfl_xor_sync(0xffffffffu, m1, off));
       }
+    };
+    auto release = [&](uint32_t bar) {
+      if (lane == 0) mbar_arrive(bar);
+    };
+
+    float sacc[BK / 2];
+    float o[D / 2];
+    float lsum[4];       // SUM_BF16: P . ones (m64n8)
+    float l0, l1;        // else: this thread's share of the fp32 sum
+    auto zero_acc = [&]() {
+#pragma unroll
+      for (int i = 0; i < D / 2; ++i) o[i] = 0.0f;
+#pragma unroll
+      for (int i = 0; i < 4; ++i) lsum[i] = 0.0f;
+      l0 = l1 = 0.0f;
+    };
+    const uint64_t ones_desc = desc(my_ones, 128, 256, 0);
+    // p = exp2(s - m) against the V tile at sv (kv0 its first row): bf16 p
+    // into O, the row sum into l0 / l1 (fp32 p) or lsum (bf16 p). kShort
+    // skips the 16-column chunks wholly past Lk (p = 0 there: nothing to add).
+    // `fresh`: the first product overwrites O and lsum instead of adding
+    auto pv = [&](const float (&sacc)[BK / 2], float m0, float m1, uint32_t sv, int kv0,
+                  bool fresh) {
       uint32_t pa[BK / 16][4];
 #pragma unroll
       for (int kk = 0; kk < BK / 16; ++kk) {
+        if (C::SHORT && kv0 + 16 * kk >= Lk) {
+          pa[kk][0] = pa[kk][1] = pa[kk][2] = pa[kk][3] = 0u;
+          continue;
+        }
 #pragma unroll
         for (int half = 0; half < 2; ++half) {
           const int i = 8 * kk + 4 * half;
@@ -516,60 +693,209 @@ attn_sm90_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < BK / 16; ++kk) {
+        if (C::SHORT && kv0 + 16 * kk >= Lk) continue;
         uint64_t dv;
         if constexpr (DMAJOR) {
           dv = desc_k(sv + (kk / 4) * D * 128 + (kk % 4) * 32);  // d rows
         } else {
           dv = desc_mn(sv + kk * 16 * 128, BK * 128);  // 64-column blocks BK*128 apart
         }
-        wgmma_rs<D, DMAJOR ? 0 : 1>(o, pa[kk], dv, 1);
-        if constexpr (SUM_BF16) wgmma_rs<8, 0>(lsum, pa[kk], ones_desc, 1);
+        const int acc = !(fresh && kk == 0);
+        wgmma_rs<D, DMAJOR ? 0 : 1>(o, pa[kk], dv, acc);
+        if constexpr (SUM_BF16) wgmma_rs<8, 0>(lsum, pa[kk], ones_desc, acc);
       }
       wgmma_commit();
       wgmma_wait0();
       fence_regs(o);
       fence_regs(lsum);
-      release(s);
-    }
-    if constexpr (SUM_BF16) {
-      l0 = lsum[0];
-      l1 = lsum[2];
-    } else {
+    };
+    // the row sums, over the quad (fp32 p) or from the ones product
+    auto row_sums = [&]() {
+      if constexpr (SUM_BF16) {
+        l0 = lsum[0];
+        l1 = lsum[2];
+      } else {
 #pragma unroll
-      for (int off = 1; off < 4; off <<= 1) {
-        l0 += __shfl_xor_sync(0xffffffffu, l0, off);
-        l1 += __shfl_xor_sync(0xffffffffu, l1, off);
+        for (int off = 1; off < 4; off <<= 1) {
+          l0 += __shfl_xor_sync(0xffffffffu, l0, off);
+          l1 += __shfl_xor_sync(0xffffffffu, l1, off);
+        }
       }
-    }
+      if constexpr (SUM == kSumCross) {  // _kernel_cross_packed's bf16 denominator
+        l0 = __bfloat162float(__float2bfloat16_rn(l0));
+        l1 = __bfloat162float(__float2bfloat16_rn(l1));
+      }
+    };
+    // the shift: the row max over the quad; max(row max, 0) for
+    // _kernel_cross_packed below 128 kv (its zero-padded columns' logits)
+    auto shift = [&](float& m0, float& m1) {
+      quad_max(m0, m1);
+      if (SUM == kSumCross && Lk < 128) {
+        m0 = fmaxf(m0, 0.0f);
+        m1 = fmaxf(m1, 0.0f);
+      }
+    };
+    // o / l in bf16 into a staging tile ((q, d) rows of D, or (d, q) rows
+    // of 64 queries for the d-major layout), made visible to the TMA store
+    auto stage = [&](uint32_t tile) {
+      const int r0 = 16 * warp + g, r1 = r0 + 8;
+      const float inv0 = 1.0f / l0, inv1 = 1.0f / l1;
+      bf16* st = reinterpret_cast<bf16*>(gbase + (tile - base));
+#pragma unroll
+      for (int i = 0; i < D / 2; i += 4) {
+        const int col = 8 * (i / 4) + 2 * tq4;
+        uint32_t lo, hi;
+        if constexpr (C::SHORT) {  // see the note at the top
+          lo = pack_bf16x2(o[i] * inv0, o[i + 1] * inv0);
+          hi = pack_bf16x2(o[i + 2] * inv1, o[i + 3] * inv1);
+        } else {
+          lo = pack_bf16x2(o[i] / l0, o[i + 1] / l0);
+          hi = pack_bf16x2(o[i + 2] / l1, o[i + 3] / l1);
+        }
+        if constexpr (DMAJOR) {
+          const __nv_bfloat162 a = *reinterpret_cast<const __nv_bfloat162*>(&lo);
+          const __nv_bfloat162 c = *reinterpret_cast<const __nv_bfloat162*>(&hi);
+          st[col * 64 + r0] = a.x;
+          st[(col + 1) * 64 + r0] = a.y;
+          st[col * 64 + r1] = c.x;
+          st[(col + 1) * 64 + r1] = c.y;
+        } else {
+          *reinterpret_cast<uint32_t*>(&st[r0 * D + col]) = lo;
+          *reinterpret_cast<uint32_t*>(&st[r1 * D + col]) = hi;
+        }
+      }
+      // kShort: the previous item's store (from the other staging tile) has
+      // read it before the barrier, so the next item may write that tile
+      if (C::SHORT && t == 0) asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+      fence_proxy_async();
+      named_bar_sync(1 + wg, 128);
+    };
 
-    // o / l in bf16, staged in this consumer's q tile, one TMA store
-    const int r0 = 16 * warp + g, r1 = r0 + 8;
-    bf16* st = reinterpret_cast<bf16*>(my_q_ptr);
-#pragma unroll
-    for (int i = 0; i < D / 2; i += 4) {
-      const int col = 8 * (i / 4) + 2 * tq4;
-      const uint32_t lo = pack_bf16x2(o[i] / l0, o[i + 1] / l0);
-      const uint32_t hi = pack_bf16x2(o[i + 2] / l1, o[i + 3] / l1);
-      if constexpr (DMAJOR) {  // (d, q) rows of 64 queries
-        const __nv_bfloat162 a = *reinterpret_cast<const __nv_bfloat162*>(&lo);
-        const __nv_bfloat162 c = *reinterpret_cast<const __nv_bfloat162*>(&hi);
-        st[col * 64 + r0] = a.x;
-        st[(col + 1) * 64 + r0] = a.y;
-        st[col * 64 + r1] = c.x;
-        st[(col + 1) * 64 + r1] = c.y;
-      } else {  // (q, d) rows of D
-        *reinterpret_cast<uint32_t*>(&st[r0 * D + col]) = lo;
-        *reinterpret_cast<uint32_t*>(&st[r1 * D + col]) = hi;
+    if constexpr (C::SHORT) {
+      Item x;
+      const int n_mine = first_item(x);
+      for (int n = 0, n_kv = 0; n < n_mine; ++n, next(x)) {
+        const int h = x.hg * kConsumers + wg;  // this consumer's head (none past H)
+        if (n == 0 || x.qt == 0) {  // the next (b, group): release its K + V slot, wait for the next
+          if (n > 0) release(bar_empty + 8 * ((n_kv - 1) % ST));
+          mbar_wait(bar_full + 8 * (n_kv % ST), (n_kv / ST) & 1);
+          ++n_kv;
+        }
+        const uint32_t sk = sst + ((n_kv - 1) % ST) * C::STAGE + wg * C::KV_BYTES;
+        const uint32_t sv = sk + C::K_BYTES;
+        const int slot = n % QS;
+        const uint32_t my_q = sq + slot * C::Q_ALL + wg * C::Q_BYTES;
+        mbar_wait(bar_qready + 8 * slot, (n / QS) & 1);  // landed and scaled
+        if (h < H) qk(sacc, my_q, sk);
+        release(bar_qempty + 8 * slot);  // the producer refills it while this item goes on
+        if (h >= H) continue;
+        mask(sacc, 0);
+        float m0 = -INFINITY, m1 = -INFINITY;
+        tile_max(sacc, m0, m1);
+        shift(m0, m1);
+        l0 = l1 = 0.0f;
+        pv(sacc, m0, m1, sv, 0, true);
+        row_sums();
+        // staging tiles alternate, each store's read awaited one item later
+        const uint32_t my_out = sout + ((n & 1) * kConsumers + wg) * C::OUT_BYTES;
+        stage(my_out);
+        if (t == 0) tma_store(&to, my_out, 0, x.qt * C::BQ, h, x.b);
       }
-    }
-    fence_proxy_async();
-    named_bar_sync(1 + wg, 128);
-    if (t == 0 && q0 + 64 * wg < Lq) {
-      if constexpr (DMAJOR) tma_store(&to, my_q, q0 + 64 * wg, 0, h, b);
-      else tma_store(&to, my_q, 0, q0 + 64 * wg, h, b);
+      if (t == 0) asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+    } else {
+      const int h = blockIdx.y, b = blockIdx.z, q0 = blockIdx.x * C::BQ;
+      const uint32_t my_q = sq + wg * C::Q_BYTES;
+      mbar_wait(bar_qfull, 0);
+      scale_q(my_q);
+      if constexpr (BODY == kOnline) {
+        // one pass: m the running max, alpha = exp2(m - m_next) rescales
+        // the row sum and O before this tile's p = exp2(s - m_next) joins
+        zero_acc();
+        float m0 = -INFINITY, m1 = -INFINITY;
+        for (int j = 0; j < n_tiles; ++j) {
+          const int s = j % ST;
+          const uint32_t sk = sst + s * C::STAGE, sv = sk + C::K_BYTES;
+          mbar_wait(bar_full + 8 * s, (j / ST) & 1);
+          qk(sacc, my_q, sk);
+          mask(sacc, j * BK);
+          float n0 = m0, n1 = m1;
+          tile_max(sacc, n0, n1);
+          quad_max(n0, n1);
+          const float a0 = ex2(m0 - n0), a1 = ex2(m1 - n1);
+          m0 = n0;
+          m1 = n1;
+          l0 *= a0;
+          l1 *= a1;
+#pragma unroll
+          for (int i = 0; i < D / 2; ++i) o[i] *= (i & 2) ? a1 : a0;
+          pv(sacc, m0, m1, sv, j * BK, false);
+          release(bar_empty + 8 * s);
+        }
+      } else {
+        // pass 1: the row max
+        float m0 = -INFINITY, m1 = -INFINITY;
+        for (int it = 0; it < n_tiles; ++it) {
+          const int s = it % ST;
+          mbar_wait(bar_full + 8 * s, (it / ST) & 1);
+          qk(sacc, my_q, sst + s * C::STAGE);
+          release(bar_empty + 8 * s);
+          mask(sacc, it * BK);
+          tile_max(sacc, m0, m1);
+        }
+        shift(m0, m1);
+        // pass 2: p = exp2(s - max), bf16, against V; the row sum (O and the
+        // sums live from here on, not through pass 1)
+        zero_acc();
+        for (int j = 0; j < n_tiles; ++j) {
+          const int it = n_tiles + j, s = it % ST;
+          const uint32_t sk = sst + s * C::STAGE, sv = sk + C::K_BYTES;
+          mbar_wait(bar_full + 8 * s, (it / ST) & 1);
+          if (n_tiles > 1) {  // else sacc still holds the one tile's masked scores
+            qk(sacc, my_q, sk);
+            mask(sacc, j * BK);
+          }
+          pv(sacc, m0, m1, sv, j * BK, false);
+          release(bar_empty + 8 * s);
+        }
+      }
+      row_sums();
+      // staged in this consumer's q tile, one TMA store
+      stage(my_q);
+      if (t == 0 && q0 + 64 * wg < Lq) {
+        if constexpr (DMAJOR) tma_store(&to, my_q, q0 + 64 * wg, 0, h, b);
+        else tma_store(&to, my_q, 0, q0 + 64 * wg, h, b);
+        asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+      }
     }
   }
 }
+
+// One __global__ entry per body, so a profile tells the bodies apart by
+// kernel name.
+#define SDT_ATTN_PARAMS                                                                \
+  const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,      \
+      const __grid_constant__ CUtensorMap tv, const __grid_constant__ CUtensorMap to,  \
+      int Lq, int Lk, int H, int B, float scale
+
+template <int D, bool DMAJOR, int SUM>
+__global__ void __launch_bounds__((Cfg<D, DMAJOR, kTwoPass>::THREADS), 1)
+attn_sm90_two_pass(SDT_ATTN_PARAMS) {
+  attn_body<D, DMAJOR, kTwoPass, SUM>(tq, tk, tv, to, Lq, Lk, H, B, scale);
+}
+
+template <int D, int SUM>
+__global__ void __launch_bounds__((Cfg<D, false, kOnline>::THREADS), 1)
+attn_sm90_online(SDT_ATTN_PARAMS) {
+  attn_body<D, false, kOnline, SUM>(tq, tk, tv, to, Lq, Lk, H, B, scale);
+}
+
+template <int D, int SUM>
+__global__ void __launch_bounds__((Cfg<D, false, kShort>::THREADS), 1)
+attn_sm90_short(SDT_ATTN_PARAMS) {
+  attn_body<D, false, kShort, SUM>(tq, tk, tv, to, Lq, Lk, H, B, scale);
+}
+
+#undef SDT_ATTN_PARAMS
 
 // --- host side -----------------------------------------------------------------
 
@@ -600,14 +926,53 @@ inline EncodeTiled encode_tiled() {
 // the swizzle (0 or 128 bytes).
 constexpr int kGeomLen = 10;
 
+// Encoded maps memoised on every encode argument (the address and the
+// geometry row): equal arguments give an identical map, so nothing goes
+// stale. A ring searched in full, large enough for every map of one SD
+// step (a 512 px flash_nat step: 32 launches, at most 128 maps), so the
+// views that come back at the same addresses step after step hit; hits and
+// misses are counted (map_cache_stats).
+struct MapCache {
+  static constexpr int kSize = 256;
+  struct Entry {
+    long long key[kGeomLen + 1];
+    CUtensorMap map;
+  };
+  Entry entries[kSize];
+  int used = 0, next = 0;
+  long long hits = 0, misses = 0;
+  std::mutex mu;
+};
+
+inline MapCache& map_cache() {
+  static MapCache cache;
+  return cache;
+}
+
 // Tensor maps of q, k, v, out from the table; 0, or the CUresult of a
 // refused encoding, negated.
 inline int encode_maps(CUtensorMap (&maps)[4], const void* const (&ptrs)[4],
                        const long long* geom) {
-  const EncodeTiled fn = encode_tiled();
-  if (fn == nullptr) return static_cast<int>(cudaErrorNotSupported);
+  MapCache& cache = map_cache();
+  std::lock_guard<std::mutex> lock(cache.mu);
   for (int i = 0; i < 4; ++i) {
     const long long* g = geom + kGeomLen * i;
+    long long key[kGeomLen + 1];
+    key[0] = static_cast<long long>(reinterpret_cast<uintptr_t>(ptrs[i]));
+    for (int j = 0; j < kGeomLen; ++j) key[j + 1] = g[j];
+    bool hit = false;
+    for (int e = 0; e < cache.used && !hit; ++e) {
+      bool same = true;
+      for (int j = 0; j <= kGeomLen && same; ++j) same = cache.entries[e].key[j] == key[j];
+      if (same) {
+        maps[i] = cache.entries[e].map;
+        hit = true;
+      }
+    }
+    ++(hit ? cache.hits : cache.misses);
+    if (hit) continue;
+    const EncodeTiled fn = encode_tiled();
+    if (fn == nullptr) return static_cast<int>(cudaErrorNotSupported);
     const cuuint64_t dims[4] = {static_cast<cuuint64_t>(g[0]), static_cast<cuuint64_t>(g[1]),
                                 static_cast<cuuint64_t>(g[2]), static_cast<cuuint64_t>(g[3])};
     const cuuint64_t strides[3] = {static_cast<cuuint64_t>(g[4]),
@@ -622,14 +987,37 @@ inline int encode_maps(CUtensorMap (&maps)[4], const void* const (&ptrs)[4],
                           g[9] == 128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_NONE,
                           CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
     if (r != CUDA_SUCCESS) return -static_cast<int>(r);
+    MapCache::Entry& e = cache.entries[cache.next];
+    for (int j = 0; j <= kGeomLen; ++j) e.key[j] = key[j];
+    e.map = maps[i];
+    cache.next = (cache.next + 1) % MapCache::kSize;
+    if (cache.used < MapCache::kSize) ++cache.used;
   }
   return 0;
 }
 
-template <int D, bool DMAJOR, bool SUM_BF16, bool SHORT = false>
+// The map cache's hits and misses since the library was loaded, into out[0..1].
+inline void map_cache_stats(long long* out) {
+  MapCache& cache = map_cache();
+  std::lock_guard<std::mutex> lock(cache.mu);
+  out[0] = cache.hits;
+  out[1] = cache.misses;
+}
+
+// SMs of the current device (kShort's persistent grid)
+inline int sm_count() {
+  static int count[64] = {0};
+  int dev = 0;
+  cudaGetDevice(&dev);
+  if (dev >= 64) dev = 0;
+  if (count[dev] == 0) cudaDeviceGetAttribute(&count[dev], cudaDevAttrMultiProcessorCount, dev);
+  return count[dev];
+}
+
+template <int D, bool DMAJOR, int BODY, int SUM>
 int launch(const void* q, const void* k, const void* v, void* out, int B, int H, int Lq,
            int Lk, const long long* geom, float scale, cudaStream_t s) {
-  using C = Cfg<D, DMAJOR, SHORT>;
+  using C = Cfg<D, DMAJOR, BODY>;
   // the boxes this instance's expect_tx counts and staging assume
   const long long want[4][3] = {
       {64, DMAJOR ? C::DP : 64, 128}, {64, C::BK, 128},
@@ -642,27 +1030,27 @@ int launch(const void* q, const void* k, const void* v, void* out, int B, int H,
   CUtensorMap maps[4];
   const void* const ptrs[4] = {q, k, v, out};
   if (const int err = encode_maps(maps, ptrs, geom)) return err;
-  auto kernel = attn_sm90_kernel<D, DMAJOR, SUM_BF16, SHORT>;
+  const auto kernel = [] {
+    if constexpr (BODY == kOnline) return attn_sm90_online<D, SUM>;
+    else if constexpr (BODY == kShort) return attn_sm90_short<D, SUM>;
+    else return attn_sm90_two_pass<D, DMAJOR, SUM>;
+  }();
   static bool configured = false;
   if (!configured) {
     cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
     configured = true;
   }
-  dim3 grid((Lq + C::BQ - 1) / C::BQ, H, B);
-  kernel<<<grid, C::THREADS, C::SMEM, s>>>(maps[0], maps[1], maps[2], maps[3], Lq, Lk, scale);
+  const int n_qt = (Lq + C::BQ - 1) / C::BQ;
+  dim3 grid(n_qt, H, B);
+  if constexpr (C::SHORT) {
+    const long long items = static_cast<long long>(n_qt) * ((H + C::CONS - 1) / C::CONS) * B;
+    grid = dim3(static_cast<unsigned>(items < sm_count() ? items : sm_count()));
+  }
+  kernel<<<grid, C::THREADS, C::SMEM, s>>>(maps[0], maps[1], maps[2], maps[3], Lq, Lk, H, B,
+                                           scale);
   return static_cast<int>(cudaGetLastError());
 }
 
-// The (B, H, L, D) instance: SHORT where the row has at most 128 kv at
-// D <= 80 (flash_attention.py::_kv_tile mirrors this choice).
-template <int D, bool SUM_BF16>
-int launch_bhld(const void* q, const void* k, const void* v, void* out, int B, int H, int Lq,
-                int Lk, const long long* geom, float scale, cudaStream_t s) {
-  if constexpr (D <= 80) {
-    if (Lk <= 128) return launch<D, false, SUM_BF16, true>(q, k, v, out, B, H, Lq, Lk, geom, scale, s);
-  }
-  return launch<D, false, SUM_BF16>(q, k, v, out, B, H, Lq, Lk, geom, scale, s);
-}
-
+}  // namespace
 }  // namespace sm90
 }  // namespace sdt

@@ -27,8 +27,9 @@
 // the wrapper raises on others.
 extern "C" int attn_eod_supports(int D) { return D == 40 || D == 80 || D == 160; }
 
-// L must be a multiple of this (pvtd's own rule; the kernel clips any tail).
-extern "C" int attn_eod_tile() { return 64; }
+// The kv rows per tile (the k box of the geometry table); L must be a
+// multiple of it (pvtd's own rule; the kernel clips any tail).
+extern "C" int attn_eod_tile() { return sdt::sm90::Cfg<40, true, sdt::sm90::kTwoPass>::BK; }
 
 // geom: the TMA geometry of qt, k, vt and out (sdt::sm90::kGeomLen values
 // each, as flash_attention.py::_tma_geometry computes them). Returns a CUDA
@@ -36,12 +37,15 @@ extern "C" int attn_eod_tile() { return 64; }
 extern "C" int attn_eod_launch(const void* qt, const void* k, const void* vt, void* out,
                                int B, int H, int D, int L, const long long* geom, float scale,
                                void* stream) {
-  using sdt::sm90::launch;
+  using namespace sdt::sm90;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (D) {
-    case 40: return launch<40, true, true>(qt, k, vt, out, B, H, L, L, geom, scale, s);
-    case 80: return launch<80, true, true>(qt, k, vt, out, B, H, L, L, geom, scale, s);
-    case 160: return launch<160, true, true>(qt, k, vt, out, B, H, L, L, geom, scale, s);
+    case 40: return launch<40, true, kTwoPass, kSumBf16>(qt, k, vt, out, B, H, L, L, geom, scale, s);
+    case 80: return launch<80, true, kTwoPass, kSumBf16>(qt, k, vt, out, B, H, L, L, geom, scale, s);
+    case 160: return launch<160, true, kTwoPass, kSumBf16>(qt, k, vt, out, B, H, L, L, geom, scale, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
+
+// The tensor-map cache's hits and misses since load, into out[0..1].
+extern "C" void attn_eod_map_cache_stats(long long* out) { sdt::sm90::map_cache_stats(out); }

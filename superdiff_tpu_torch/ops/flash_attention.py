@@ -34,11 +34,12 @@ several kv blocks           ``_kernel`` (online softmax)
 The Hopper kernels are ``csrc/flash_attention.cu`` (d-major) and
 ``csrc/flash_attention_bhld.cu`` (one kernel in four modes: single block
 with the row sum of the fp32 p, single block with the row sum of the bf16 p,
-online softmax, and the short-kv mode of ``_kernel_cross_packed``). The
-d-major kernel and the two single-block modes run on one ``wgmma`` + TMA
-core, ``csrc/attn_sm90.cuh``, which reads every operand through a tensor
-map; :func:`_tma_geometry` computes the maps' geometry (and raises where the
-TMA cannot read a view), the library encodes them. The
+online softmax, and the short-kv mode of ``_kernel_cross_packed``). All of
+them run on one ``wgmma`` + TMA core, ``csrc/attn_sm90.cuh``, which reads
+every operand through a tensor map; :func:`_tma_geometry` computes the maps'
+geometry (and raises where the TMA cannot read a view) with the kv tile the
+library picks (:func:`_kv_tile`); the library encodes the maps, memoised on
+every encode argument (:func:`map_cache_stats` counts its hits). The
 packed-layout kernels (``_kernel_mh_nat``, ``_kernel_cross_packed``) take
 (B, H, L, D) views of the packed (B, L, H*D) projections and write their
 output packed: no layout copy. A CUDA tensor is launched or raises (bf16,
@@ -69,10 +70,14 @@ _SIGNATURES = {
     "attn_eod_supports": (_ci, [_ci]),
     "attn_eod_tile": (_ci, []),
     "attn_eod_launch": (_ci, [_vp] * 4 + [_ci] * 4 + [_vp, _cf, _vp]),
+    "attn_eod_map_cache_stats": (None, [_vp]),
 }
 _SIGNATURES_BHLD = {
     "attn_bhld_supports": (_ci, [_ci]),
+    "attn_bhld_body": (_ci, [_ci] * 3),
+    "attn_bhld_tile": (_ci, [_ci] * 3),
     "attn_bhld_launch": (_ci, [_vp] * 4 + [_ci] * 5 + [_vp, _cf, _ci, _vp]),
+    "attn_bhld_map_cache_stats": (None, [_vp]),
 }
 
 # Module-level levers, as in the JAX module (its tests and sweeps select
@@ -94,10 +99,12 @@ _LONG_KERNELS = {
     "pvt2": ("_make_pvt_kernel", "bf16"),
     "pvt4": ("_make_pvt_kernel", "bf16"),
 }
-_SUM_OF = {"_kernel_mh": "fp32", "_kernel_mh_nat": "fp32", **dict(_LONG_KERNELS.values())}
-# TPU kernel -> mode of flash_attention_bhld.cu
+_SUM_OF = {"_kernel_mh": "fp32", "_kernel_mh_nat": "fp32", "_make_pvtd_kernel": "bf16",
+           **dict(_LONG_KERNELS.values())}
+# TPU kernel -> mode of flash_attention_bhld.cu (pvtd, d-major, has its own kernel)
 _MODE_OF = {"_kernel": 2, "_kernel_cross_packed": 3,
-            **{name: 0 if s == "fp32" else 1 for name, s in _SUM_OF.items()}}
+            **{name: 0 if s == "fp32" else 1 for name, s in _SUM_OF.items()
+               if name != "_make_pvtd_kernel"}}
 _CROSS_MAX_KV = 128  # the kv block of _kernel_cross_packed
 
 
@@ -136,8 +143,8 @@ def _plain_1block(q, k, v, sm_scale: float, sum: str = "fp32"):
     """Single-kv-block attention on (B, H, L, D), step by step as the TPU
     bodies: p = exp2(s - row max); ``sum="fp32"`` adds p before it is cast
     to v's dtype (``_kernel_1block``, ``_kernel_mh``), ``sum="bf16"`` after
-    (``mxsum``, ``pipe``, ``pvt``); P.V from the cast p, fp32 accumulation,
-    one divide."""
+    (``mxsum``, ``pipe``, ``pvt``, and pvtd on transposed d-major views);
+    P.V from the cast p, fp32 accumulation, one divide."""
     s = _scores(q, k, sm_scale)
     p = torch.exp2(s - s.amax(-1, keepdim=True))
     pc = p.to(v.dtype)
@@ -164,7 +171,9 @@ def _plain_multiblock(q, k, v, sm_scale: float, block_q: int, block_k: int):
     """Online-softmax attention on (B, H, L, D), following ``_kernel``'s loop
     over kv blocks of ``block_k``: running max m, sum l of the fp32 p and
     fp32 acc, both rescaled by ``exp2(m_prev - m_next)``; p cast to v's dtype
-    for P.V. (``block_q`` only cuts the rows into independent programs.)"""
+    for P.V. (``block_q`` only cuts the rows into independent programs.)
+    With ``block_k`` the card's kv tile (:func:`_kv_tile` of ``_kernel``)
+    it rounds as the Hopper kernel does, step for step."""
     lk = k.shape[2]
     outs = []
     for qb in q.split(block_q, dim=2):
@@ -264,11 +273,12 @@ def _row_view(what, t):
 _GEOM_LEN = 10  # per operand: 4 dims, 3 byte strides, 2 box dims, swizzle
 
 
-def _kv_tile(d: int, lk: int, dmajor: bool) -> int:
-    """kv rows per tile of the wgmma core (``Cfg::BK``): 128 for the
-    (B, H, L, D) rows of at most 128 kv at D <= 80 (one tile, its scores kept
-    between the passes), else 64 (``sdt::sm90::launch_bhld``)."""
-    return 128 if not dmajor and d <= 80 and lk <= 128 else 64
+def _kv_tile(d: int, lk: int, name: str) -> int:
+    """kv rows per tile of the wgmma core's body that TPU kernel ``name``
+    launches at (D, Lk): the library's own choice (``attn_bhld_tile``), which
+    the k and v boxes of the geometry must match."""
+    lib = _build.load("flash_attention_bhld", _SIGNATURES_BHLD)
+    return lib.attn_bhld_tile(d, lk, _MODE_OF[name])
 
 
 def _tma_map(what, t, box, swizzle):
@@ -278,28 +288,30 @@ def _tma_map(what, t, box, swizzle):
     byte stride that is not a multiple of 16, or a base address not 16-byte
     aligned. (A dim of size 1 is never stepped along; its stride is rounded
     up to 16 bytes.)"""
-    if t.dim() != 4 or t.stride(3) != 1:
+    shape, stride = tuple(t.shape), t.stride()
+    if len(shape) != 4 or stride[3] != 1:
         raise ValueError(f"{what}: a 4-D view with unit stride along its last dim, got "
-                         f"shape {tuple(t.shape)} strides {t.stride()}")
-    esz = t.element_size()
+                         f"shape {shape} strides {stride}")
     strides = []
     for i in (2, 1, 0):
-        sb = t.stride(i) * esz
-        if t.shape[i] == 1:
+        sb = stride[i] * t.element_size()
+        if shape[i] == 1:
             sb = max(16, -(-sb // 16) * 16)
         if sb % 16:
             raise ValueError(f"{what}: the TMA needs byte strides that are multiples of 16; "
-                             f"got {sb} bytes along dim {i} (strides {t.stride()})")
+                             f"got {sb} bytes along dim {i} (strides {stride})")
         strides.append(sb)
     if t.data_ptr() % 16:
         raise ValueError(f"{what}: the TMA needs a 16-byte aligned base address; got "
                          f"{t.data_ptr():#x}")
-    return (t.shape[3], t.shape[2], t.shape[1], t.shape[0], *strides, *box, swizzle)
+    return (shape[3], shape[2], shape[1], shape[0], *strides, *box, swizzle)
 
 
-def _tma_geometry(what, q, k, v, out, dmajor: bool):
+def _tma_geometry(what, q, k, v, out, dmajor: bool, bk: int):
     """The TMA geometry of the four operands of the wgmma core, in the
-    order and with the boxes the kernel expects (``_GEOM_LEN`` values each).
+    order and with the boxes the kernel expects (``_GEOM_LEN`` values each),
+    for kv tiles of ``bk`` rows (the library's: ``attn_eod_tile``,
+    :func:`_kv_tile`).
 
     ``dmajor``: q, v, out (B, H, D, L) and k (B, H, L, D), as
     ``flash_mha_eod`` has them; else all four (B, H, L, D). K-major tiles
@@ -309,7 +321,6 @@ def _tma_geometry(what, q, k, v, out, dmajor: bool):
     sequence come in as zeros. The output box is stored unswizzled and
     clipped to the tensor."""
     d = k.shape[3]
-    bk = _kv_tile(d, k.shape[2], dmajor)
     if dmajor:
         boxes = ((64, -(-d // 16) * 16, 128), (64, bk, 128), (64, d, 128), (64, d, 0))
     else:
@@ -320,8 +331,22 @@ def _tma_geometry(what, q, k, v, out, dmajor: bool):
 
 
 def _geometry_arg(geom):
-    """The table as a C array (a ``c_void_p`` argument of the launch)."""
+    """The table as a C array (a ``c_void_p`` argument of the launch; read,
+    never written, by the library)."""
     return (ctypes.c_longlong * len(geom))(*geom)
+
+
+def map_cache_stats() -> dict:
+    """{library: (hits, misses)} of the tensor-map caches of the two
+    attention libraries since they were loaded (needs the card)."""
+    out = {}
+    for name, sigs, fn in (("flash_attention", _SIGNATURES, "attn_eod_map_cache_stats"),
+                           ("flash_attention_bhld", _SIGNATURES_BHLD,
+                            "attn_bhld_map_cache_stats")):
+        counts = (ctypes.c_longlong * 2)()
+        getattr(_build.load(name, sigs), fn)(counts)
+        out[name] = tuple(counts)
+    return out
 
 
 def _launch_bhld(q, k, v, sm_scale, name, out=None):
@@ -346,10 +371,7 @@ def _launch_bhld(q, k, v, sm_scale, name, out=None):
         out = torch.empty((b, h, lq, d), dtype=q.dtype, device=q.device)
     out = _row_view(what, out)
     mode = _MODE_OF[name]
-    if mode in (0, 1):  # the wgmma core: tensor maps
-        table = _tma_geometry(what, q, k, v, out, dmajor=False)
-    else:
-        table = tuple(s for t in (q, k, v, out) for s in t.stride()[:3])
+    table = _tma_geometry(what, q, k, v, out, dmajor=False, bk=lib.attn_bhld_tile(d, lk, mode))
     p = _build.ptr
     err = lib.attn_bhld_launch(p(q), p(k), p(v), p(out), b, h, d, lq, lk,
                                _geometry_arg(table), float(sm_scale * LOG2_E), mode,
@@ -383,7 +405,7 @@ def _launch(qt, k, vt, sm_scale):
             f"flash_mha_eod: kernel takes head_dim 40, 80 or 160 and L a "
             f"multiple of {tile}; got D={d}, L={l}")
     out = torch.empty((b, h, d, l), dtype=qt.dtype, device=qt.device)
-    geom = _tma_geometry("flash_mha_eod", qt, k, vt, out, dmajor=True)
+    geom = _tma_geometry("flash_mha_eod", qt, k, vt, out, dmajor=True, bk=tile)
     p = _build.ptr
     err = lib.attn_eod_launch(p(qt), p(k), p(vt), p(out), b, h, d, l, _geometry_arg(geom),
                               float(sm_scale * LOG2_E), _build.stream_ptr(qt))
@@ -444,14 +466,16 @@ class _FlashPacked(torch.autograd.Function):
 
 
 class _FlashEod(torch.autograd.Function):
-    """Kernel (CUDA) or reference (CPU) forward; tangents through the
-    reference."""
+    """Kernel (CUDA) or its plain version (CPU) forward in the d-major
+    layout; tangents through :func:`_reference_eod`, as JAX
+    ``_flash_eod_jvp``."""
 
     @staticmethod
     def forward(qt, k, vt, sm_scale):
         if qt.is_cuda:
             return _launch(qt, k, vt, sm_scale)
-        return _reference_eod(qt, k, vt, sm_scale)
+        return _plain("_make_pvtd_kernel", qt.transpose(-1, -2), k, vt.transpose(-1, -2),
+                      sm_scale, None, None).transpose(-1, -2)
 
     @staticmethod
     def setup_context(ctx, inputs, output):

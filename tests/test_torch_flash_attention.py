@@ -4,9 +4,11 @@ kernel in interpret mode; and the port's forward-mode derivative vs
 ``jax.jvp`` of ``_reference_eod``.
 
 B=2, H=2, L=512, head dims 40 and 80. Tolerances: fp32 1e-5. bf16 inputs:
-2e-2 against the JAX reference (both round the logits and the probabilities
-to bf16, in different orders) and 3e-2 against the kernel (which also
-rounds q * scale to bf16 and sums bf16 probabilities).
+2e-2 against the JAX reference (the port rounds q * scale, p and the output
+to bf16 where pvtd does, the reference rounds the normalised probabilities)
+and one bf16 ulp of the largest output against the kernel, with under 1 % of
+the outputs differing at all (both round at the same places; only the fp32
+summation order differs).
 """
 
 import jax
@@ -18,7 +20,7 @@ from torch_parity import t
 
 from superdiff_tpu.ops.pallas import flash_attention as jfa
 from superdiff_tpu_torch.ops import flash_attention
-from superdiff_tpu_torch.ops.flash_attention import _reference_eod, flash_mha_eod
+from superdiff_tpu_torch.ops.flash_attention import flash_mha_eod
 
 torch.set_num_threads(1)
 
@@ -48,12 +50,19 @@ def test_matches_jax_reference(d, dtype, tol):
 
 
 @pytest.mark.parametrize("d", [40, 80])
-@pytest.mark.parametrize("dtype,tol", [("float32", 1e-5), ("bfloat16", 3e-2)])
+@pytest.mark.parametrize("dtype,tol", [("float32", 1e-5), ("bfloat16", "ulp")])
 def test_matches_pallas_kernel_interpret(d, dtype, tol):
     arrays = _inputs(d, seed=1)
-    ref = jfa.flash_mha_eod(*(jnp.asarray(a, dtype) for a in arrays), interpret=True)
+    ref = np.asarray(jfa.flash_mha_eod(*(jnp.asarray(a, dtype) for a in arrays),
+                                       interpret=True), np.float32)
     got = _port(arrays, getattr(torch, dtype))
-    np.testing.assert_allclose(got, np.asarray(ref, np.float32), rtol=tol, atol=tol)
+    if tol != "ulp":
+        np.testing.assert_allclose(got, ref, rtol=tol, atol=tol)
+        return
+    # one bf16 ulp at the largest output: 2^(exponent - 7)
+    ulp = 2.0 ** (np.floor(np.log2(np.abs(ref).max())) - 7)
+    assert np.abs(got - ref).max() <= ulp
+    assert np.mean(got != ref) < 0.01
 
 
 @pytest.mark.parametrize("d", [40, 80])
@@ -71,6 +80,9 @@ def test_cpu_tensors_take_the_plain_version():
     before = flash_mha_eod.launches
     out = flash_mha_eod(qt, k, vt)
     assert flash_mha_eod.launches == before
-    assert torch.equal(out, _reference_eod(qt, k, vt, 40**-0.5))
+    # pvtd's plain version: the row sum of the bf16 p, on the transposed views
+    plain = flash_attention._plain_1block(qt.transpose(2, 3), k, vt.transpose(2, 3), 40**-0.5,
+                                          "bf16").transpose(2, 3)
+    assert torch.equal(out, plain)
     with pytest.raises(ValueError, match="CUDA"):
         flash_attention._launch(qt, k, vt, 40**-0.5)

@@ -161,3 +161,25 @@ def test_cpu_tensors_take_the_plain_versions_and_cuda_is_required_to_launch():
                        fa._plain_multiblock(q, k, v, 40**-0.5, 2048, 512))
     with pytest.raises(ValueError, match="CUDA"):
         fa._launch_bhld(q, k, v, 40**-0.5, "_kernel")
+
+
+@pytest.mark.parametrize("kind", ["bf16", "mixed"])
+def test_multiblock_at_the_cards_kv_tile_matches_pallas_kernel(kind):
+    """The card's online kernel rounds each p against the running maximum of
+    its 128-row kv tiles: ``_plain_multiblock(block_k=128)``, which is the
+    Pallas ``_kernel`` itself under ``block_k=128`` (a block size the JAX
+    entry accepts). bf16: within one bf16 ulp of the largest output; mixed
+    dtypes: the mean limit, which tells where the rounding happens."""
+    arrays = _inputs(2048, 40, seed=5)
+    ref = _jax(arrays, kind, block_k=128)
+    qd, kd = (getattr(torch, n) for n in DTYPES[kind])
+    q, k, v = (t(a).to(dt) for a, dt in zip(arrays, (qd, kd, kd)))
+    with torch.no_grad():
+        got = fa._plain_multiblock(q, k, v, 40**-0.5, 2048, 128).float().numpy()
+    if kind == "bf16":
+        ulp = 2.0 ** (np.floor(np.log2(np.abs(ref).max())) - 7)
+        assert np.abs(got - ref).max() <= ulp
+    else:
+        _hold(got, ref, kind)
+    # the entry with that block_k takes the same plain version on the CPU
+    np.testing.assert_array_equal(_port(arrays, kind, block_k=128), got)
