@@ -8,8 +8,9 @@ Phases, in order; any failed check raises and the script exits non-zero:
 1. build: compile every hand-written kernel (``superdiff_tpu_torch/ops/csrc``)
    with ``nvcc`` for sm_90a, one process per source, all started together;
    print the build seconds, the count of wgmma (HGMMA) and TMA (UTMALDG,
-   UTMASTG) instructions in the attention libraries (``cuobjdump -sass``,
-   where installed; none is a failure) and the card's name and power limit.
+   UTMASTG) instructions in the attention and FFN libraries (``cuobjdump
+   -sass``, where installed; none is a failure, and so is any ``mma.sync``
+   (HMMA) in the FFN library) and the card's name and power limit.
 2. kernels: call each kernel's wrapper on the card at a tiny shape and at
    every shape the main paths give it (512 and 768 px), and hold the result
    against its plain PyTorch version on the same inputs (tolerance printed
@@ -25,10 +26,12 @@ Phases, in order; any failed check raises and the script exits non-zero:
    pvtd does (``_plain_1block(sum="bf16")`` on the transposed views) and to
    the fp32 ``_reference_eod``.
    Time the kernel, the plain version and, where one exists, the single
-   PyTorch call computing the same function; work out the bound. Every
-   attention row also gives its device time alone (launches captured in a
-   CUDA graph and replayed) and the wrapper's host cost (host clock over
-   launches without a synchronise).
+   PyTorch call computing the same function (for ``geglu_ffn_block`` the
+   composed ``ffn_library``: LayerNorm, two cuBLAS GEMMs, GEGLU and residual
+   as plain ops, timed as one function); work out the bound. Every
+   attention and FFN row also gives its device time alone (launches
+   captured in a CUDA graph and replayed) and the wrapper's host cost (host
+   clock over launches without a synchronise).
 3. main path: SD-1.x UNet, CLIP text encoder and VAE decoder at their
    default (full) configs, random bf16 weights from ``--seed``, method
    ``or``, 512 px, latent batch 8 (context batch 24 with conditioning
@@ -74,8 +77,10 @@ Phases, in order; any failed check raises and the script exits non-zero:
    be finite.
 5. profiles and CPU references, after every timed run (a torch.profiler
    session slows the host's later launches for the rest of the process):
-   one 512 px SD sampler run, one 768 px step (device time by kernel family
-   and the device's idle share) and 10 CIFAR SDE/OR steps are traced with torch.profiler, and a
+   one ``geglu_ffn_block`` call must launch its three ``geglu_*`` kernels
+   and nothing else (no cast or elementwise kernel); one 512 px SD sampler
+   run, one 768 px step (device time by kernel family and the device's idle
+   share) and 10 CIFAR SDE/OR steps are traced with torch.profiler, and a
    64x64-latent SD UNet forward and a batch-4 ScoreUNet forward on the card
    are each held against the same weights in fp32 on the host CPU, as is a
    full-width ``VAEEncoder`` forward at 256 px.
@@ -179,10 +184,10 @@ def host_ms(fn, n=50):
     return ms
 
 
-def sass_facts(names=("flash_attention", "flash_attention_bhld")):
-    """Counts of wgmma (HGMMA) and TMA (UTMALDG / UTMASTG) instructions in
-    the built attention libraries, from ``cuobjdump -sass``; None where no
-    cuobjdump is installed."""
+def sass_facts(names=("flash_attention", "flash_attention_bhld", "geglu_ffn")):
+    """Counts of wgmma (HGMMA), TMA (UTMALDG / UTMASTG) and mma.sync (HMMA)
+    instructions in the built attention and FFN libraries, from ``cuobjdump
+    -sass``; None where no cuobjdump is installed."""
     import shutil
 
     from superdiff_tpu_torch.ops import _build
@@ -578,6 +583,19 @@ def check_packed(dev):
     return checks
 
 
+def ffn_library(x, gamma, beta, w1, b1, w2, b2, eps):
+    """The FFN sub-block as PyTorch calls (cuBLAS GEMMs, plain GEGLU and
+    residual): ``geglu_ffn_block``'s library yardstick, timed as a whole and
+    used nowhere in the port."""
+    import torch
+    import torch.nn.functional as F
+
+    xn = F.layer_norm(x.float(), x.shape[-1:], gamma.float(), beta.float(), eps).to(x.dtype)
+    v, g = torch.addmm(b1.to(x.dtype), xn, w1.t()).chunk(2, dim=-1)
+    h = (v * F.gelu(g.float())).to(x.dtype)
+    return torch.addmm(b2.to(x.dtype), h, w2.t()) + x
+
+
 def check_geglu(dev):
     import torch
 
@@ -611,12 +629,48 @@ def check_geglu(dev):
         err = (got.float() - ref).abs().max().item()
         scale = ref.abs().max().item()
         tol = 2e-2 * scale
-        ms = time_ms(lambda: m.geglu_ffn_block(*args))
+        run = lambda: m.geglu_ffn_block(*args)
+        ms = time_ms(run)
+        split = (graph_ms(run), host_ms(run))
         plain = time_ms(lambda: m._reference_block(*args))
+        lib = graph_ms(lambda: ffn_library(*args, 1e-5))
         ops = 6 * mm * cc * f / PEAK_BF16
         nbytes = (2 * mm * cc + 3 * f * cc) * 2 / PEAK_BYTES
-        c.add((mm, cc), err, scale, tol, ms, plain, max(ops, nbytes) * 1e3, None, per_step)
+        c.add((mm, cc), err, scale, tol, ms, plain, max(ops, nbytes) * 1e3, lib, per_step,
+              split)
+        del x, w1, w2, got, ref
+        torch.cuda.empty_cache()
     return c
+
+
+def geglu_launches_only(dev):
+    """One ``geglu_ffn_block`` call (SD's (M, 320) block at 64 tokens, the
+    UNet's dtypes) under torch.profiler: its kernels must be the three
+    ``geglu_*`` launches and nothing else (no cast of the biases, no
+    elementwise kernel)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from superdiff_tpu_torch.ops import geglu_ffn as m
+
+    g = torch.Generator(device=dev).manual_seed(1)
+    rnd = lambda *s, dt=torch.bfloat16: torch.randn(*s, device=dev, generator=g).to(dt)
+    args = (rnd(24 * 64, 320), rnd(320, dt=torch.float32), rnd(320, dt=torch.float32),
+            rnd(2560, 320), rnd(2560), rnd(320, 1280), rnd(320))
+    m.geglu_ffn_block(*args)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        m.geglu_ffn_block(*args)
+        torch.cuda.synchronize()
+    kernels = [e.key for e in prof.events() if e.device_type == DeviceType.CUDA
+               and not e.key.startswith(("cuda", "Activity Buffer", "Buffer Flush"))]
+    names = [k.replace("(anonymous namespace)::", "").split("(")[0].split("::")[-1]
+             for k in kernels]
+    log(f"  geglu_ffn_block, one call under the profiler: {len(kernels)} kernels "
+        f"({', '.join(names)})")
+    if len(kernels) != 3 or not all("geglu_" in k for k in kernels):
+        raise AssertionError(f"geglu_ffn_block launched other kernels: {kernels}")
 
 
 def check_fused_sde_step(dev):
@@ -1391,6 +1445,9 @@ def main(argv=None) -> int:
         for n, f in facts.items():
             if not (f["HGMMA"] and f["UTMALDG"]):
                 raise AssertionError(f"{n}: no wgmma / TMA instructions in the built library")
+        if facts["geglu_ffn"]["HMMA"] or not facts["geglu_ffn"]["UTMASTG"]:
+            raise AssertionError(f"geglu_ffn: mma.sync or no TMA store in the built library "
+                                 f"({facts['geglu_ffn']})")
     log(f"  card: {card}")
 
     log("phase 2: kernels vs their plain versions")
@@ -1457,6 +1514,7 @@ def main(argv=None) -> int:
         raise AssertionError(f"the CIFAR path launched SD kernels: {others}")
 
     log("phase 5: profiles and CPU references")
+    geglu_launches_only(dev)
     profile_step(sampler, ctxs, dev, args.steps)
     sd_768_profile(sd, mod, args, dev)
     unet_reference_check(mod, dev)

@@ -60,22 +60,11 @@ SHAPES = (
     ("packed", "_kernel_cross_packed", (24, 8, 4096, 40, 77)),
     ("packed", "_kernel_cross_packed", (24, 8, 9216, 40, 77)),
 )
-# the kernels whose arithmetic this change keeps: the single-block modes and
-# the d-major kernel (the online and cross modes moved onto the wgmma core),
-# but for the rows the library gives its short body (attn_bhld_body), whose
-# epilogue multiplies by 1 / l where the parent divided
-BIT_EXACT = ("_make_pvtd_kernel", "_kernel_1block", "_make_pvt_kernel", "_kernel_mh",
-             "_kernel_mh_nat")
-SHORT_BODY = 2
-
-
-def bit_exact(fa, kind, name, d, lk):
-    """Whether this row keeps the parent's arithmetic, as ``fa``'s library
-    launches it."""
-    if name not in BIT_EXACT or kind == "eod":
-        return name in BIT_EXACT
-    lib = fa._build.load("flash_attention_bhld", fa._SIGNATURES_BHLD)
-    return lib.attn_bhld_body(d, lk, fa._MODE_OF[name]) != SHORT_BODY
+# the kernels whose arithmetic this change keeps: every attention kernel (the
+# Hopper primitives moved into the shared sm90_common.cuh, no device code
+# changed)
+BIT_EXACT = ("_make_pvtd_kernel", "_kernel", "_kernel_1block", "_make_pvt_kernel",
+             "_kernel_mh", "_kernel_mh_nat", "_kernel_cross_packed")
 
 
 def load_package(root: Path, alias: str):
@@ -153,7 +142,7 @@ def main(argv=None) -> int:
         same = torch.equal(outs["parent"], outs["change"])
         verdict = ("bit-identical" if same else
                    f"max diff {diff:.3e} ({diff / mag:.2e} of the largest output)")
-        if not (same if bit_exact(mods["change"], kind, name, d, lk) else diff <= 1.2e-2 * mag):
+        if not (same if name in BIT_EXACT else diff <= 1.2e-2 * mag):
             failed.append(key)
             verdict += " FAILS its hold"
         del outs

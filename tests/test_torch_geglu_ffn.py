@@ -7,6 +7,11 @@ C=64, F=256, M=256, fp32. The port keeps weights in PyTorch's Linear layout:
 w1 (2F, C) value half first, w2 (C, F), the transposes of the JAX
 function's. Tolerance 1e-5 against the reference; 2e-5 against the kernel,
 whose erf is a polynomial (max gelu error 1.2e-6, ``geglu_ffn.py:45-78``).
+The Hopper kernel's gelu is that polynomial: its plain copy ``_gelu_poly``
+is held to JAX ``_gelu_kernel`` within 1e-6 (the same fp32 operations, at
+most an ulp of |x| <= 8 apart) and to the exact erf gelu within 2e-6 on a
+grid over [-8, 8]; the kernel's shape rule (C and F multiples of 64, any
+M) is checked without a card.
 """
 
 import jax
@@ -76,3 +81,34 @@ def test_cpu_tensors_take_the_plain_version():
     assert torch.equal(out.reshape(M, C), _reference_block(*args))
     with pytest.raises(ValueError, match="CUDA"):
         geglu_ffn._launch(*args, 1e-5)
+
+
+def _gelu_grid():
+    return np.linspace(-8.0, 8.0, 16001, dtype=np.float32)
+
+
+def test_gelu_poly_matches_pallas_polynomial():
+    x = _gelu_grid()
+    ref = np.asarray(jffn._gelu_kernel(jnp.asarray(x), False))
+    got = geglu_ffn._gelu_poly(torch.from_numpy(x)).numpy()
+    np.testing.assert_allclose(got, ref, rtol=0, atol=1e-6)
+
+
+def test_gelu_poly_matches_exact_gelu():
+    x = torch.from_numpy(_gelu_grid())
+    exact = torch.nn.functional.gelu(x.double()).float()
+    np.testing.assert_allclose(geglu_ffn._gelu_poly(x).numpy(), exact.numpy(), rtol=0,
+                               atol=2e-6)
+
+
+@pytest.mark.parametrize("m, c, f, ok", [
+    (256, 64, 256, True), (1, 64, 256, True), (77, 128, 512, True), (0, 64, 256, True),
+    (256, 96, 384, False), (256, 64, 200, False), (256, 32, 128, False),
+    (256, 320, 1300, False)])
+def test_shape_rule(m, c, f, ok):
+    shapes = ((m, c), (2 * f, c), (c, f))
+    if ok:
+        assert geglu_ffn._check_shapes(*shapes) == (m, c, f)
+    else:
+        with pytest.raises(ValueError, match="multiples of 64"):
+            geglu_ffn._check_shapes(*shapes)
