@@ -28,23 +28,35 @@ Phases, in order; any failed check raises and the script exits non-zero:
    Time the kernel, the plain version and, where one exists, the single
    PyTorch call computing the same function (for ``geglu_ffn_block`` the
    composed ``ffn_library``: LayerNorm, two cuBLAS GEMMs, GEGLU and residual
-   as plain ops, timed as one function); work out the bound. Every
-   attention and FFN row also gives its device time alone (launches
-   captured in a CUDA graph and replayed) and the wrapper's host cost (host
-   clock over launches without a synchronise).
+   as plain ops, timed as one function); work out the bound. Every row
+   also gives its device time alone (launches captured in a CUDA graph and
+   replayed) and the wrapper's host cost (host clock over launches without
+   a synchronise). The step epilogues ``sd_or_step`` ((3, 4100), (8, 16384),
+   (8, 36864), (8, 65536)) and ``fused_sde_step`` ((3, 10, 384),
+   (2, 16, 256), (2, 100, 3072), with and without ties) take their step
+   scalars as 0-d CUDA tensors, as the captured samplers hand them over, and
+   print beside their times the device time of an empty kernel on the same
+   grid of clusters in the same kind of graph (the floor of one launch).
 3. main path: SD-1.x UNet, CLIP text encoder and VAE decoder at their
    default (full) configs, random bf16 weights from ``--seed``, method
    ``or``, 512 px, latent batch 8 (context batch 24 with conditioning
-   dedup), ``--steps`` Euler steps through ``generate``. Every launch count
-   is zeroed just before and read just after, and must show every step went
-   through its three kernels and no other. Latents must be finite, kappa in
-   [0, 1], the images uint8. Per-step ms is then timed on ready contexts.
+   dedup), ``--steps`` Euler steps through ``generate``, the step captured
+   in a CUDA graph and replayed (the default on the card). Every launch
+   count is zeroed just before and read just after: the captured run counts
+   its eager warm-up step and the capture (a replay counts nothing), the
+   eager twin (``capture=False``) every step, and each must show the steps
+   went through their three kernels and no other. The captured run must
+   equal the eager one bit for bit on the same noise (latents and the
+   ``kappa``, ``ll_obj``, ``ll_bg`` traces). Latents must be finite, kappa in
+   [0, 1], the images uint8. Per-step ms and peak memory of the captured
+   sampler and its eager twin are then timed in turns on ready contexts.
    3b. the same at 768 px, 2 steps: per step 5 launches each of the
    online-softmax kernel (9216 tokens), the d-major kernel (2304 tokens)
    and ``_kernel_mh`` (576 tokens, head dim 160), 16 of ``geglu_ffn_block``,
-   1 of ``sd_or_step``; ms per step and peak memory. Then one step at
-   1024 px (16384-token rows in the online-softmax kernel, head dims 80 and
-   160 in the d-major kernel).
+   1 of ``sd_or_step``; captured and eager, held bit for bit and timed in
+   turns. Then one step at 1024 px the same way (16384-token rows in the
+   online-softmax kernel, head dims 80 and 160 in the d-major kernel).
+   Phases 3c-3e run their steps eagerly, each launch counted.
    3c. 512 px under ``attn_impl="flash_eo"`` (2 steps), then one step under
    every other ``_LONG_IMPL`` name and one under ``attn_impl="flash"``, each
    counted under its own TPU-kernel name; the latents under the bf16-sum
@@ -69,28 +81,41 @@ Phases, in order; any failed check raises and the script exits non-zero:
 4. CIFAR joint sampler: two full-width ``vpsdeA`` ScoreUNets (36.0 M
    parameters each, bf16 compute) with drawn non-zero weights, labels tiled
    0-9, batch 100, ``--cifar-steps`` SDE/OR steps through ``make_generator``
-   after two synced warmups. Counters are zeroed just before and read just
-   after: every step must have launched ``fused_sde_step``, and no SD kernel.
-   x0 finite, every logq row renormalised (max exactly 0), uint8 images; ms
-   per step, images/s and peak memory are printed. Then a 4-step ODE/OR run
+   after two synced warmups, captured (the default on the card) and eager.
+   Counters are zeroed just before and read just after: the captured run
+   must have launched ``fused_sde_step`` in its warm-up step and capture,
+   the eager twin in every step, and no SD kernel; x0 and logq of the two
+   equal bit for bit. x0 finite, every logq row renormalised (max exactly
+   0), uint8 images; ms per step, images/s and peak memory of both, timed in
+   turns, are printed. Then a 4-step ODE/OR run
    (``torch.func.jvp`` through both bf16 nets, after a 1-step warmup) must
    be finite.
 5. profiles and CPU references, after every timed run (a torch.profiler
    session slows the host's later launches for the rest of the process):
    one ``geglu_ffn_block`` call must launch its three ``geglu_*`` kernels
-   and nothing else (no cast or elementwise kernel); one 512 px SD sampler
-   run, one 768 px step (device time by kernel family and the device's idle
-   share) and 10 CIFAR SDE/OR steps are traced with torch.profiler, and a
+   and nothing else (no cast or elementwise kernel), one ``sd_or_step`` and
+   one ``fused_sde_step`` call one kernel each; one captured 512 px SD
+   sampler run, one captured 768 px and one 1024 px step and 10 captured
+   CIFAR SDE/OR steps (graphs built before) are traced with torch.profiler
+   (three recorded runs each, after warm-ups): device time by kernel family,
+   the device's idle share, and the kernels each step replayed (the most
+   any recorded run saw: the tracer loses a record now and then), which
+   must be 1 ``sd_or_step``, 10 ``flash_mha_eod`` and 3 x 16
+   ``geglu_ffn_block`` kernels per 512 px step (768 px: 5 ``_kernel``, 10
+   other attention; 1024 px: 5 ``_kernel``, 10 ``flash_mha_eod``) and 1
+   ``fused_sde_step`` per CIFAR step; and a
    64x64-latent SD UNet forward and a batch-4 ScoreUNet forward on the card
    are each held against the same weights in fp32 on the host CPU, as is a
    full-width ``VAEEncoder`` forward at 256 px.
 
 The line before the last is the kernel table as JSON, one row per TPU kernel:
-``launches`` over the run of the path the kernel serves (phase 3 for
-``sd_or_step``, ``flash_mha_eod`` and ``geglu_ffn_block``, phase 3b for
-``_kernel`` and ``_kernel_mh``, phase 3c for the ``_LONG_IMPL`` kernels,
+``launches`` the wrapper's count over the run of the path the kernel serves
+(phase 3's captured run for ``sd_or_step``, ``flash_mha_eod`` and
+``geglu_ffn_block``, phase 3b's for ``_kernel`` and ``_kernel_mh``: the
+warm-up step and the capture; phase 3c for the ``_LONG_IMPL`` kernels,
 phase 3e for ``_kernel_mh_nat`` (``flash_nat``) and ``_kernel_cross_packed``
-(``xpk``), phase 4 for ``fused_sde_step``), ``max_abs_err`` the worst over the checked
+(``xpk``), phase 4's captured run for ``fused_sde_step``; phase 5 reads the
+replayed launches from the profiler), ``max_abs_err`` the worst over the checked
 shapes, and ``ms`` / ``plain_ms`` / ``bound_ms`` / ``library_ms`` per step of
 that path (each of its shapes' time per launch times its launches per
 step). The card's name and power limit are on the line before it; the last
@@ -99,6 +124,7 @@ spills) goes to ``chiprun_out/chip_smoke_build.txt``, the profile tables to
 ``chiprun_out/chip_smoke_profile.txt`` (SD 512 px),
 ``chiprun_out/chip_smoke_sd768_profile.txt`` and
 ``chiprun_out/chip_smoke_cifar_profile.txt``.
+The 1024 px step's table goes beside them, to ``chip_smoke_sd1024_profile.txt``.
 """
 
 from __future__ import annotations
@@ -111,6 +137,7 @@ import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
+OUT = ROOT / "chiprun_out"  # what the run writes besides its output
 PROMPTS = ("a cat", "a dog")
 
 # H100 SXM data sheet (dense): bf16 tensor cores, HBM, and the SFU exp2 rate
@@ -254,6 +281,22 @@ class Check:
                 "library_ms": self.library_ms}
 
 
+def step_kernel_row(c, name, shape, err, scale, tol, run, plain, bound, floor, per_step):
+    """Time one step-epilogue kernel (``run``: a call of its wrapper whose
+    step scalars are 0-d CUDA tensors, so it can be captured) and add its
+    row: the host-loop time, the device time alone (``graph_ms``), the
+    wrapper's host cost, the plain version and, printed beside them, the
+    device time of an empty kernel on the same grid of clusters in the same
+    kind of graph (``floor``: the launch's own floor)."""
+    ms = time_ms(run)
+    split = (graph_ms(run), host_ms(run))
+    plain_ms = time_ms(plain)
+    floor_ms = graph_ms(floor)
+    log(f"  {name} {shape}: empty-kernel floor {floor_ms:.4f} ms device-only; device-only "
+        f"time {split[0] / bound:.2f}x its bound")
+    c.add(shape, err, scale, tol, ms, plain_ms, bound, None, per_step, split)
+
+
 def check_sd_or_step(dev):
     import torch
 
@@ -261,11 +304,16 @@ def check_sd_or_step(dev):
 
     c = Check("sd_or_step", "superdiff_tpu_torch/ops/csrc/sd_fused_step.cu",
               "superdiff_tpu/ops/pallas/sd_fused_step.py:32", "bytes")
-    for (b, d), per_step in (((3, 4096), 0), ((8, 16384), 1), ((8, 36864), 0)):
+    # the step scalars as the sampler hands them over: 0-d views of a device table
+    scal = torch.tensor([14.6146, -0.3279], device=dev)
+    sigma, dsigma = scal.unbind()
+    # (3, 4100): a row split unevenly over a cluster; 512, 768 and 1024 px
+    for (b, d), per_step in (((3, 4100), 0), ((8, 16384), 1), ((8, 36864), 0),
+                             ((8, 65536), 0)):
         g = torch.Generator(device=dev).manual_seed(b)
         rows = [torch.randn(b, d, device=dev, generator=g) for _ in range(5)]
         ll = torch.randn(b, 2, device=dev, generator=g) * 3
-        args = (*rows, ll, 14.6146, -0.3279)
+        args = (*rows, ll, sigma, dsigma)
         got = m.sd_or_step(*args)
         ref = m.sd_or_step_reference(*args)
         torch.cuda.synchronize()
@@ -280,10 +328,12 @@ def check_sd_or_step(dev):
         tol = max(tol_x, tol_ll, 1e-6)
         if err_x > tol_x or err_ll > tol_ll or err_k > 1e-6:
             raise AssertionError(f"sd_or_step ({b},{d}): x {err_x} ll {err_ll} kappa {err_k}")
-        ms = time_ms(lambda: m.sd_or_step(*args))
-        plain = time_ms(lambda: m.sd_or_step_reference(*args))
-        bound = 6 * b * d * 4 / PEAK_BYTES * 1e3
-        c.add((b, d), err, ref[0].abs().max().item(), tol, ms, plain, bound, None, per_step)
+        cluster = m.cluster_size()
+        log(f"  sd_or_step ({b}, {d}): one launch on {b} clusters of {cluster} CTAs")
+        step_kernel_row(c, "sd_or_step", (b, d), err, ref[0].abs().max().item(), tol,
+                        lambda: m.sd_or_step(*args), lambda: m.sd_or_step_reference(*args),
+                        6 * b * d * 4 / PEAK_BYTES * 1e3,
+                        lambda: m.empty_launch(rows[0], cluster, b), per_step)
     return c
 
 
@@ -643,14 +693,27 @@ def check_geglu(dev):
     return c
 
 
+def profiled_kernels(run):
+    """The kernel names one ``run()`` launches (torch.profiler)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    run()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    return [e.key for e in prof.events() if e.device_type == DeviceType.CUDA
+            and not e.key.startswith(("cuda", "Activity Buffer", "Buffer Flush"))]
+
+
 def geglu_launches_only(dev):
     """One ``geglu_ffn_block`` call (SD's (M, 320) block at 64 tokens, the
     UNet's dtypes) under torch.profiler: its kernels must be the three
     ``geglu_*`` launches and nothing else (no cast of the biases, no
     elementwise kernel)."""
     import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
     from superdiff_tpu_torch.ops import geglu_ffn as m
 
@@ -658,13 +721,7 @@ def geglu_launches_only(dev):
     rnd = lambda *s, dt=torch.bfloat16: torch.randn(*s, device=dev, generator=g).to(dt)
     args = (rnd(24 * 64, 320), rnd(320, dt=torch.float32), rnd(320, dt=torch.float32),
             rnd(2560, 320), rnd(2560), rnd(320, 1280), rnd(320))
-    m.geglu_ffn_block(*args)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        m.geglu_ffn_block(*args)
-        torch.cuda.synchronize()
-    kernels = [e.key for e in prof.events() if e.device_type == DeviceType.CUDA
-               and not e.key.startswith(("cuda", "Activity Buffer", "Buffer Flush"))]
+    kernels = profiled_kernels(lambda: m.geglu_ffn_block(*args))
     names = [k.replace("(anonymous namespace)::", "").split("(")[0].split("::")[-1]
              for k in kernels]
     log(f"  geglu_ffn_block, one call under the profiler: {len(kernels)} kernels "
@@ -673,18 +730,46 @@ def geglu_launches_only(dev):
         raise AssertionError(f"geglu_ffn_block launched other kernels: {kernels}")
 
 
+def step_kernels_launch_once(dev):
+    """One ``sd_or_step`` call at (8, 16384) and one ``fused_sde_step`` call
+    at (2, 100, 3072), scalars on the card as the captured step hands them
+    over, under torch.profiler: each must be one kernel launch and nothing
+    else."""
+    import torch
+
+    from superdiff_tpu_torch.ops import fused_step, sd_fused_step
+
+    g = torch.Generator(device=dev).manual_seed(3)
+    rnd = lambda *shape: torch.randn(*shape, device=dev, generator=g)
+    scal = (rnd(4).abs() + 0.1).unbind()
+    rows, ll = [rnd(8, 16384) for _ in range(5)], rnd(8, 2)
+    s, x, eps, logq = rnd(2, 100, 3072), rnd(100, 3072), rnd(100, 3072), rnd(100, 2)
+    runs = {"sd_or_step": lambda: sd_fused_step.sd_or_step(*rows, ll, *scal[:2]),
+            "fused_sde_step": lambda: fused_step.fused_sde_step(s, x, eps, logq, *scal)}
+    for name, run in runs.items():
+        kernels = profiled_kernels(run)
+        short = [k.replace("(anonymous namespace)::", "").split("(")[0] for k in kernels]
+        log(f"  {name}, one call under the profiler: {len(kernels)} kernel(s) "
+            f"({', '.join(short)})")
+        if len(kernels) != 1 or name not in kernels[0]:
+            raise AssertionError(f"{name}: one call launched {kernels}")
+
+
 def check_fused_sde_step(dev):
     import torch
 
     from superdiff_tpu_torch.core import ito
     from superdiff_tpu_torch.core.schedules import VPSchedule
     from superdiff_tpu_torch.ops import fused_step as m
+    from superdiff_tpu_torch.ops.sd_fused_step import empty_launch
 
     c = Check("fused_sde_step", "superdiff_tpu_torch/ops/csrc/fused_step.cu",
               "superdiff_tpu/ops/pallas/fused_step.py:36", "bytes")
     sched = VPSchedule()
     t, dt = torch.tensor(0.5), torch.tensor(5e-3)
-    scal = (sched.dlog_alpha_dt(t), sched.beta(t), sched.sigma(t), dt)
+    # the step scalars as the sampler hands them over: 0-d views of a device table
+    host = (sched.dlog_alpha_dt(t), sched.beta(t), sched.sigma(t), dt)
+    scal = torch.stack(host).to(dev).unbind()
     for (n, b, d), per_step in (((3, 10, 384), 0), ((2, 16, 256), 0), ((2, 100, 3072), 1)):
         for ties in (True, False):
             g = torch.Generator(device=dev).manual_seed(n * b + d + ties)
@@ -706,12 +791,15 @@ def check_fused_sde_step(dev):
             if err_x > tol_x or err_lq > tol_lq or not torch.all(got[1].max(-1).values == 0):
                 raise AssertionError(f"fused_sde_step ({n},{b},{d}) ties={ties}: x {err_x} "
                                      f"(tol {tol_x}) logq {err_lq} (tol {tol_lq})")
-            ms = time_ms(lambda: m.fused_sde_step(*args))
-            plain = time_ms(lambda: m.fused_sde_step_reference(*args))
-            bound = (n + 3) * b * d * 4 / PEAK_BYTES * 1e3
-            c.add((n, b, d, "ties" if ties else "no ties"), max(err_x, err_lq),
-                  ref[0].abs().max().item(), max(tol_x, tol_lq), ms, plain, bound, None,
-                  0 if ties else per_step)
+            cluster = m.cluster_size(d)
+            shape = (n, b, d, "ties" if ties else "no ties")
+            log(f"  fused_sde_step {shape}: one launch on {b} clusters of {cluster} CTAs")
+            step_kernel_row(c, "fused_sde_step", shape, max(err_x, err_lq),
+                            ref[0].abs().max().item(), max(tol_x, tol_lq),
+                            lambda: m.fused_sde_step(*args),
+                            lambda: m.fused_sde_step_reference(*args),
+                            (n + 3) * b * d * 4 / PEAK_BYTES * 1e3,
+                            lambda: empty_launch(x, cluster, b), 0 if ties else per_step)
     return c
 
 
@@ -739,20 +827,49 @@ def unet_reference_check(mod, dev):
         raise AssertionError(f"UNet card-vs-CPU relative error {rel}")
 
 
+# kernel families of the profiles, and how many kernels one call of each
+# wrapper launches
+ONLINE = "attention, online (_kernel)"
+ATTN_OTHER = "attention, wgmma core, other"
+KERNELS_PER_CALL = {"sd_or_step": ("sd_or_step", 1), "flash_mha_eod": (ATTN_OTHER, 1),
+                    "geglu_ffn_block": ("geglu_ffn_block", 3), "_kernel": (ONLINE, 1),
+                    "_kernel_mh": (ATTN_OTHER, 1), "fused_sde_step": ("fused_sde_step", 1)}
+
+
+def expect_profiled_launches(what, counts, steps, **calls):
+    """The launches a profiled run of ``steps`` captured steps replayed, by
+    kernel family, against ``calls`` wrapper calls per step (a family that
+    two wrappers share adds both): the kernel names the trace holds, not
+    the wrappers' counters, which a replay never touches."""
+    want = {}
+    for name, n in calls.items():
+        fam, per_call = KERNELS_PER_CALL[name]
+        want[fam] = want.get(fam, 0) + n * per_call * steps
+    got = {fam: counts.get(fam, 0) for fam in want}
+    log(f"  {what}: kernels per step from the profiler: " + ", ".join(
+        f"{fam} {n / steps:g}" for fam, n in got.items()) + " (wrapper calls per step: " +
+        ", ".join(f"{k} {v}" for k, v in calls.items()) + ")")
+    if got != want:
+        raise AssertionError(f"{what}: profiled launches {got} != {want}")
+
+
 def profile_step(sampler, ctxs, dev, steps):
-    """Device time by kernel family over one sampler run of ``steps`` steps
-    (torch.profiler), per step, and the device's idle share; the table goes
-    to chiprun_out/chip_smoke_profile.txt."""
+    """Device time and launches by kernel family over one run of a captured
+    sampler (its graph already built) of ``steps`` steps (torch.profiler),
+    per step, and the device's idle share; the table goes to
+    chip_smoke_profile.txt in the output directory."""
     import torch
 
     gen = torch.Generator(device=dev).manual_seed(1)
-    fams, wall = profile_by_family(lambda: sampler(*ctxs, generator=gen),
-                                   ROOT / "chiprun_out" / "chip_smoke_profile.txt")
+    fams, wall, counts = profile_by_family(lambda: sampler(*ctxs, generator=gen), OUT /
+                                           "chip_smoke_profile.txt")
     total = sum(fams.values())
-    log(f"  profile (one 512 px or run, {steps} steps): {total / steps:.3f} ms device time "
-        f"per step, {wall / steps:.3f} ms wall per step under the profiler (device idle "
+    log(f"  profile (one captured 512 px or run, {steps} steps): {total / steps:.3f} ms device "
+        f"time per step, {wall / steps:.3f} ms wall per step under the profiler (device idle "
         f"{1 - total / wall:.3f}); per step by family (ms): " +
         ", ".join(f"{k} {v / steps:.4f}" for k, v in sorted(fams.items(), key=lambda kv: -kv[1])))
+    expect_profiled_launches("captured 512 px or", counts, steps, sd_or_step=1,
+                             flash_mha_eod=10, geglu_ffn_block=16)
 
 
 def draw_nonzero_(model, seed):
@@ -802,30 +919,37 @@ def score_unet_reference_check(model, cfg, dev):
         raise AssertionError(f"ScoreUNet card-vs-CPU relative error {rel}")
 
 
-def profile_by_family(run, path):
-    """Device time of one ``run()`` by kernel family (torch.profiler); the
-    table goes to ``path``. Returns ({family: ms}, wall ms under the
-    profiler)."""
+def profile_by_family(run, path, cycles=3):
+    """Device time of ``run()`` by kernel family (torch.profiler); the table
+    goes to ``path``. ``run()`` is recorded ``cycles`` times, each after an
+    unrecorded run while the tracer warms up. Returns ({family: ms}, wall ms
+    under the profiler) of the first recorded run, and {family: kernels
+    launched}, the most any recorded run saw: the tracer loses a kernel
+    record now and then (one ``fused_sde_step`` record of ten, in one of
+    six repeated profiles), so one run alone can miscount."""
     import torch
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, schedule
 
-    from superdiff_tpu_torch.ops import flash_attention as fa
-
-    online_before = fa.flash_mha_bhld.launches["_kernel"]
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        run()
-        torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) * 1e3
-    events = prof.key_averages()
-    path.write_text(events.table(sort_by="self_device_time_total", row_limit=60))
+    traced, walls = [], []
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1, repeat=cycles),
+                 on_trace_ready=lambda p: traced.append(p.key_averages())) as prof:
+        for _ in range(cycles):
+            run()
+            torch.cuda.synchronize()
+            prof.step()
+            t0 = time.perf_counter()
+            run()
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+            prof.step()
+    path.write_text(traced[0].table(sort_by="self_device_time_total", row_limit=60))
     # the wgmma core's bodies are kernels of their own: attn_sm90_online
     # (mode 2, _kernel), attn_sm90_two_pass and attn_sm90_short (the others)
-    online = "attention, online (_kernel)"
     families = (("fused_sde_step", ("fused_sde_step",)),
-                (online, ("attn_sm90_online",)),
-                ("attention, wgmma core, other", ("attn_sm90",)),
+                (ONLINE, ("attn_sm90_online",)),
+                (ATTN_OTHER, ("attn_sm90",)),
                 ("geglu_ffn_block", ("geglu_",)),
                 ("sd_or_step", ("or_step",)),
                 ("convolution", ("conv", "fprop", "implicit", "cudnn", "nchw", "nhwc")),
@@ -834,27 +958,33 @@ def profile_by_family(run, path):
                 ("reduction", ("reduce",)),
                 ("elementwise / copy / cat", ("elementwise", "vectorized", "copy", "cat",
                                                "unrolled", "index", "fill")))
-    totals = {}
-    for e in events:
-        us = e.self_device_time_total
-        if (us <= 0 or e.device_type != DeviceType.CUDA
-                or e.key.startswith(("aten::", "cuda", "Activity Buffer", "Buffer Flush"))):
-            continue  # ops (which repeat their kernels' time), runtime calls, buffers
-        key = e.key.lower()
-        fam = next((f for f, words in families if any(w in key for w in words)), "other")
-        totals[fam] = totals.get(fam, 0.0) + us / 1e3
-    if fa.flash_mha_bhld.launches["_kernel"] > online_before and not totals.get(online):
-        raise AssertionError(f"profile: _kernel was launched but the family {online!r} reads "
-                             f"no device time (its kernel name changed?)")
-    return totals, wall
+    runs = []
+    for events in traced:
+        totals, counts = {}, {}
+        for e in events:
+            us = e.self_device_time_total
+            if (us <= 0 or e.device_type != DeviceType.CUDA
+                    or e.key.startswith(("aten::", "cuda", "Activity Buffer", "Buffer Flush",
+                                         "ProfilerStep"))):
+                continue  # ops and the step's range (which repeat their kernels' time),
+                # runtime calls, buffers
+            key = e.key.lower()
+            fam = next((f for f, words in families if any(w in key for w in words)), "other")
+            totals[fam] = totals.get(fam, 0.0) + us / 1e3
+            counts[fam] = counts.get(fam, 0) + e.count
+        runs.append((totals, counts))
+    most = {fam: max(c.get(fam, 0) for _, c in runs) for _, c in runs for fam in c}
+    return runs[0][0], walls[0], most
 
 
 def cifar_phase(dev, args):
     """The CIFAR joint sampler at full width (``vpsdeA``: nf 128, ch_mult
     (1,2,2,2), attention at 16 and 8, 10 classes), two models with drawn
-    non-zero weights, batch 100, labels tiled 0-9, bf16 compute. Returns the
-    fused_sde_step launches of the counted run, the models, the config and
-    the labels."""
+    non-zero weights, batch 100, labels tiled 0-9, bf16 compute: the SDE /
+    OR trajectory captured (the counted run) and eager, the captured run
+    held bit for bit to the eager one, both timed in turns; then the ODE.
+    Returns the fused_sde_step launches of the counted run, the models, the
+    config and the labels."""
     import torch
 
     from superdiff_tpu_torch.ops.fused_step import fused_sde_step
@@ -871,26 +1001,52 @@ def cifar_phase(dev, args):
         f"non-zero): {time.perf_counter() - t0:.2f} s")
     b = cfg.eval_batch_size
     labels = torch.arange(10, device=dev).repeat(b // 10 + 1)[:b]
-    warm = cifar.make_generator(models, cfg, n_steps=2, labels=labels)
+    warm = cifar.make_generator(models, cfg, n_steps=2, labels=labels, capture=False)
     for _ in range(2):  # two synced warmups
         float(warm(torch.Generator(device=dev).manual_seed(0))[0].sum())
-    generate = cifar.make_generator(models, cfg, mode="sde", operator="or",
-                                    n_steps=args.cifar_steps, labels=labels)
+    steps = args.cifar_steps
+    generate = cifar.make_generator(models, cfg, mode="sde", operator="or", n_steps=steps,
+                                    labels=labels, capture=True)
+    eager = cifar.make_generator(models, cfg, mode="sde", operator="or", n_steps=steps,
+                                 labels=labels, capture=False)
+    gen = lambda: torch.Generator(device=dev).manual_seed(args.seed)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     fused_sde_step.launches = 0
     t0 = time.perf_counter()
-    x0, logq = generate(torch.Generator(device=dev).manual_seed(args.seed))
+    x0, logq = generate(gen())
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = fused_sde_step.launches
     peak = (torch.cuda.max_memory_allocated() - base) / 2**30
-    log(f"  generate (sde, or, {args.cifar_steps} steps, batch {b}): {wall:.3f} s wall, "
-        f"{wall * 1e3 / args.cifar_steps:.3f} ms per step, {b / wall:.3f} images/s, "
-        f"peak memory {peak:.3f} GiB; fused_sde_step launches {launches} "
-        f"(want {args.cifar_steps})")
-    if launches != args.cifar_steps:
-        raise AssertionError(f"fused_sde_step launches {launches} != {args.cifar_steps}")
+    # captured: the eager warm-up step and the capture of one step
+    log(f"  generate (sde, or, {steps} steps, batch {b}, captured; the first call, with its "
+        f"warm-up step and capture): {wall:.3f} s wall, peak memory {peak:.3f} GiB; "
+        f"fused_sde_step launches {launches} (want 2: the warm-up step and the capture)")
+    if launches != 2:
+        raise AssertionError(f"fused_sde_step launches {launches} != 2")
+    fused_sde_step.launches = 0
+    ex0, elogq = eager(gen())
+    torch.cuda.synchronize()
+    log(f"  eager twin: fused_sde_step launches {fused_sde_step.launches} (want {steps}); "
+        f"x0 {'bit-identical' if torch.equal(x0, ex0) else 'DIFFERS'} to the captured run's "
+        f"(max abs {(x0 - ex0).abs().max().item():.3e}), logq "
+        f"{'bit-identical' if torch.equal(logq, elogq) else 'DIFFERS'} "
+        f"(max abs {(logq - elogq).abs().max().item():.3e})")
+    if fused_sde_step.launches != steps:
+        raise AssertionError(f"eager fused_sde_step launches {fused_sde_step.launches} != "
+                             f"{steps}")
+    if not (torch.equal(x0, ex0) and torch.equal(logq, elogq)):
+        raise AssertionError("CIFAR: the captured run differs from the eager one")
+    t = captured_and_eager(lambda: generate(gen()), lambda: eager(gen()), steps)
+    log(f"  sampler (sde, or, {steps} steps, batch {b}): captured {t['captured']:.3f} ms per "
+        f"step ({b / (t['captured'] * steps / 1e3):.3f} images/s), eager {t['eager']:.3f} ms "
+        f"per step ({b / (t['eager'] * steps / 1e3):.3f} images/s) (medians in turns: "
+        f"captured {[round(v, 3) for v in t['all']['captured']]}, eager "
+        f"{[round(v, 3) for v in t['all']['eager']]}); peak memory captured "
+        f"{t['peak_captured'] - base / 2**30:.3f} GiB, eager {t['peak_eager'] - base / 2**30:.3f}"
+        f" GiB above the earlier phases' {base / 2**30:.3f}")
+    del eager, ex0, elogq
     shape = (b, cfg.image_size, cfg.image_size, cfg.num_channels)
     if x0.shape != shape or not torch.isfinite(x0).all():
         raise AssertionError(f"x0 {tuple(x0.shape)} not finite/shaped")
@@ -917,20 +1073,24 @@ def cifar_phase(dev, args):
 
 
 def cifar_profile(models, cfg, labels, dev):
-    """10 CIFAR SDE/OR steps under torch.profiler: device time by kernel
-    family, and the device's idle share in that same run."""
+    """10 captured CIFAR SDE/OR steps (the graph built before) under
+    torch.profiler: device time and launches by kernel family, and the
+    device's idle share in that same run."""
     import torch
 
     from superdiff_tpu_torch.pipelines import cifar
 
-    short = cifar.make_generator(models, cfg, n_steps=10, labels=labels)
-    fams, wall = profile_by_family(lambda: short(torch.Generator(device=dev).manual_seed(2)),
-                                   ROOT / "chiprun_out" / "chip_smoke_cifar_profile.txt")
+    short = cifar.make_generator(models, cfg, n_steps=10, labels=labels, capture=True)
+    gen = lambda: torch.Generator(device=dev).manual_seed(2)
+    float(short(gen())[0].sum())  # its warm-up step and capture
+    fams, wall, counts = profile_by_family(
+        lambda: short(gen()), OUT / "chip_smoke_cifar_profile.txt")
     total = sum(fams.values())
-    log(f"  profile (10 sde/or steps): {total / 10:.3f} ms device time per step, "
+    log(f"  profile (10 captured sde/or steps): {total / 10:.3f} ms device time per step, "
         f"{wall / 10:.3f} ms wall per step under the profiler (device idle "
         f"{1 - total / wall:.3f}); by family (ms per step): " + ", ".join(
             f"{k} {v / 10:.4f}" for k, v in sorted(fams.items(), key=lambda kv: -kv[1])))
+    expect_profiled_launches("captured CIFAR sde/or", counts, 10, fused_sde_step=1)
 
 
 def kernel_wrappers():
@@ -979,28 +1139,109 @@ def with_attn_impl(sd, mod, impl):
         unet = sd.SDUNet(dataclasses.replace(mod.unet.config, attn_impl=impl),
                          dtype=mod.unet.dtype)
     unet.load_state_dict(mod.unet.state_dict(), assign=True)
+    # the non-persistent buffers (timestep frequencies, upsampler taps) are
+    # not in the state dict: the same tensors too
+    for name, buf in mod.unet.named_buffers(remove_duplicate=False):
+        owner, _, leaf = name.rpartition(".")
+        unet.get_submodule(owner).register_buffer(leaf, buf, persistent=False)
     return dataclasses.replace(mod, unet=unet.eval().requires_grad_(False))
 
 
-def counted_generate(sd, mod, method, cfg, batch, seed, decode=False):
+def eager_generate(sd, *args, **kwargs):
+    """``sd.generate`` with every step run eagerly: the lever phases count
+    each launch with the wrappers' counters, which a graph replay does not
+    touch."""
+    return sd.generate(*args, capture=False, **kwargs)
+
+
+def counted_generate(sd, mod, method, cfg, batch, seed, decode=False, capture=False):
     """One ``generate`` with every count set to 0 just before and read just
-    after; returns (output, counts, wall seconds)."""
+    after; returns (output, counts, wall seconds). Captured, the counts are
+    those of the eager warm-up step and of the capture (a replay counts
+    nothing)."""
     import torch
 
     zero_counts()
     t0 = time.perf_counter()
     out = sd.generate(mod, method, *PROMPTS, seed=seed, batch_size=batch, cfg=cfg,
-                      decode=decode)
+                      decode=decode, capture=capture)
     torch.cuda.synchronize()
     return out, read_counts(), time.perf_counter() - t0
 
 
+def same_run(what, got, ref, keys=("kappa", "ll_obj", "ll_bg")):
+    """Hold a captured SD run to its eager twin bit for bit: the latents
+    and the traces ``keys``."""
+    import torch
+
+    pairs = [("latents", got["latents"], ref["latents"])]
+    pairs += [(k, got["traces"][k], ref["traces"][k]) for k in keys]
+    diff = {k: (a - b).abs().max().item() for k, a, b in pairs}
+    log(f"  {what}: captured against eager on the same noise: " + ", ".join(
+        f"{k} {'bit-identical' if torch.equal(a, b) else f'max abs {diff[k]:.3e}'}"
+        for k, a, b in pairs))
+    if not all(torch.equal(a, b) for _, a, b in pairs):
+        raise AssertionError(f"{what}: the captured run differs from the eager one: {diff}")
+
+
+def captured_and_eager(run_captured, run_eager, steps, rounds=2):
+    """Per-step ms of a captured sampler and its eager twin, timed in turns
+    (captured, eager, eager, captured per round; host clock around synced
+    runs), after the captured sampler's first call (its warm-up step and
+    capture, timed apart). Returns {"first", "captured", "eager": median ms
+    per step, "peak_captured", "peak_eager": GiB}."""
+    import statistics
+
+    import torch
+
+    def timed(run):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        return ((time.perf_counter() - t0) * 1e3 / steps,
+                torch.cuda.max_memory_allocated() / 2**30)
+
+    first, peak_c = timed(run_captured)
+    times = {"captured": [], "eager": []}
+    peaks = {"captured": peak_c, "eager": 0.0}
+    for _ in range(rounds):
+        for which, run in (("captured", run_captured), ("eager", run_eager),
+                           ("eager", run_eager), ("captured", run_captured)):
+            ms, peak = timed(run)
+            times[which].append(ms)
+            peaks[which] = max(peaks[which], peak)
+    return {"first": first, **{k: statistics.median(v) for k, v in times.items()},
+            "all": times, "peak_captured": peaks["captured"], "peak_eager": peaks["eager"]}
+
+
+def sd_captured_and_eager(sd, mod, cfg, batch, seed, dev, what):
+    """Time SD ``or`` captured and eager in turns on ready contexts; returns
+    the captured sampler, whose graph is built, and its contexts."""
+    import torch
+
+    ctxs = sd.prepare_contexts(mod, "or", *PROMPTS, batch)
+    captured = sd.make_sampler(mod, "or", cfg, capture=True)
+    eager = sd.make_sampler(mod, "or", cfg, capture=False)
+    gen = lambda: torch.Generator(device=dev).manual_seed(seed)
+    t = captured_and_eager(lambda: captured(*ctxs, generator=gen()),
+                           lambda: eager(*ctxs, generator=gen()), cfg.num_inference_steps)
+    log(f"  {what}: captured {t['captured']:.3f} ms per step, eager {t['eager']:.3f} "
+        f"(medians in turns: captured {[round(v, 3) for v in t['all']['captured']]}, eager "
+        f"{[round(v, 3) for v in t['all']['eager']]}; the captured sampler's first call, "
+        f"with its warm-up step and capture, {t['first']:.3f} ms per step); peak memory "
+        f"captured {t['peak_captured']:.2f} GiB, eager {t['peak_eager']:.2f} GiB")
+    return captured, ctxs
+
+
 def timed_sampler(sd, mod, method, cfg, batch, seed, dev):
-    """(ms per step, peak GiB) of one synced sampler run on ready contexts."""
+    """(ms per step, peak GiB) of one synced eager sampler run on ready
+    contexts."""
     import torch
 
     ctxs = sd.prepare_contexts(mod, method, *PROMPTS, batch)
-    sampler = sd.make_sampler(mod, method, cfg)
+    sampler = sd.make_sampler(mod, method, cfg, capture=False)
     gen = torch.Generator(device=dev).manual_seed(seed)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -1022,18 +1263,26 @@ def finite(what, *tensors):
 def sd_768_phase(sd, mod, args, dev):
     """SD ``or`` at 768 px, latent batch 8, default ``attn_impl``: the
     9216-token rows reach the online-softmax kernel, the 2304-token rows the
-    d-major kernel, the 576-token rows (head dim 160) ``_kernel_mh``. Then
-    one step at 1024 px. Returns the 768 px run's launch counts."""
+    d-major kernel, the 576-token rows (head dim 160) ``_kernel_mh``. Run
+    captured and eager: the counts of each run, the captured run held bit
+    for bit to the eager one, both timed in turns. Then one step at 1024 px
+    the same way. Returns the captured 768 px run's launch counts."""
     import torch
 
     one = sd.SDPipelineConfig(num_inference_steps=1, height=768, width=768)
     cfg = sd.SDPipelineConfig(num_inference_steps=2, height=768, width=768)
     for _ in range(2):  # two synced warmups
-        float(sd.generate(mod, "or", *PROMPTS, seed=args.seed, batch_size=8, cfg=one,
-                          decode=False)["latents"].sum())
-    out, counts, wall = counted_generate(sd, mod, "or", cfg, 8, args.seed, decode=True)
-    expect_counts("768 px or, 2 steps", counts, sd_or_step=2, flash_mha_eod=10,
+        float(eager_generate(sd, mod, "or", *PROMPTS, seed=args.seed, batch_size=8, cfg=one,
+                             decode=False)["latents"].sum())
+    out, counts, wall = counted_generate(sd, mod, "or", cfg, 8, args.seed, decode=True,
+                                         capture=True)
+    # captured: the eager warm-up step and the capture of one step
+    expect_counts("768 px or, captured (warm-up step + capture)", counts, sd_or_step=2,
+                  flash_mha_eod=10, geglu_ffn_block=32, _kernel=10, _kernel_mh=10)
+    eager, eager_counts, _ = counted_generate(sd, mod, "or", cfg, 8, args.seed)
+    expect_counts("768 px or, eager, 2 steps", eager_counts, sd_or_step=2, flash_mha_eod=10,
                   geglu_ffn_block=32, _kernel=10, _kernel_mh=10)
+    same_run("768 px or, 2 steps", out, eager)
     lat, kappa, img = out["latents"], out["traces"]["kappa"], out["images"]
     finite("768 px latents", lat)
     if lat.shape != (8, 96, 96, 4) or not ((kappa >= 0) & (kappa <= 1)).all():
@@ -1043,28 +1292,31 @@ def sd_768_phase(sd, mod, args, dev):
     log(f"  generate: {wall:.3f} s wall; latents |x|max {lat.abs().max().item():.4f}; kappa "
         f"last step {[round(v, 6) for v in kappa[-1].tolist()]}; images {tuple(img.shape)} "
         f"uint8 mean {img.float().mean().item():.3f}")
-    del out, lat, img
+    del out, eager, lat, img
     torch.cuda.empty_cache()
-    ms, peak = timed_sampler(sd, mod, "or", cfg, 8, args.seed, dev)
-    log(f"  sampler: {ms:.3f} ms per step (UNet forward at context batch 24 + OR "
-        f"epilogue), peak memory {peak:.2f} GiB")
+    sd_captured_and_eager(sd, mod, cfg, 8, args.seed, dev, "768 px sampler (2 steps)")
+    torch.cuda.empty_cache()
 
     # one step at 1024 px: 16384-token rows (4 kv blocks of 4096) in the
     # online-softmax kernel, 4096- and 1024-token rows (head dims 80 and 160)
     # in the d-major kernel
     big = sd.SDPipelineConfig(num_inference_steps=1, height=1024, width=1024)
-    float(sd.generate(mod, "or", *PROMPTS, seed=args.seed, batch_size=8, cfg=big,
-                      decode=False)["latents"].sum())
-    out, big_counts, _ = counted_generate(sd, mod, "or", big, 8, args.seed)
-    expect_counts("1024 px or, 1 step", big_counts, sd_or_step=1, flash_mha_eod=10,
+    float(eager_generate(sd, mod, "or", *PROMPTS, seed=args.seed, batch_size=8, cfg=big,
+                         decode=False)["latents"].sum())
+    out, big_counts, _ = counted_generate(sd, mod, "or", big, 8, args.seed, capture=True)
+    expect_counts("1024 px or, captured (warm-up step + capture)", big_counts, sd_or_step=2,
+                  flash_mha_eod=20, geglu_ffn_block=32, _kernel=10)
+    eager, eager_counts, _ = counted_generate(sd, mod, "or", big, 8, args.seed)
+    expect_counts("1024 px or, eager, 1 step", eager_counts, sd_or_step=1, flash_mha_eod=10,
                   geglu_ffn_block=16, _kernel=5)
+    same_run("1024 px or, 1 step", out, eager)
     finite("1024 px latents", out["latents"])
     if out["latents"].shape != (8, 128, 128, 4):
         raise AssertionError(f"1024 px latents {tuple(out['latents'].shape)}")
-    del out
+    del out, eager
     torch.cuda.empty_cache()
-    ms, peak = timed_sampler(sd, mod, "or", big, 8, args.seed, dev)
-    log(f"  1024 px sampler: {ms:.3f} ms per step, peak memory {peak:.2f} GiB")
+    sd_captured_and_eager(sd, mod, big, 8, args.seed, dev, "1024 px sampler (1 step)")
+    torch.cuda.empty_cache()
     return counts
 
 
@@ -1080,8 +1332,8 @@ def sd_attn_impl_phase(sd, mod, args, dev):
     eo = with_attn_impl(sd, mod, "flash_eo")
     one = sd.SDPipelineConfig(num_inference_steps=1)
     two = sd.SDPipelineConfig(num_inference_steps=2)
-    float(sd.generate(eo, "or", *PROMPTS, seed=args.seed, batch_size=8, cfg=one,
-                      decode=False)["latents"].sum())
+    float(eager_generate(sd, eo, "or", *PROMPTS, seed=args.seed, batch_size=8, cfg=one,
+                         decode=False)["latents"].sum())
     out, counts, _ = counted_generate(sd, eo, "or", two, 8, args.seed)
     expect_counts("flash_eo, pvt1, 2 steps", counts, sd_or_step=2, geglu_ffn_block=32,
                   _make_pvt_kernel=10, _kernel_mh=10)
@@ -1159,8 +1411,8 @@ def sd_methods_phase(sd, mod, args, dev):
             f"{tr['final_ll_uncond'][0].item():.4f}")
     times = {}
     for method in ("or", "and_ode"):
-        float(sd.generate(mod, method, *PROMPTS, seed=args.seed, batch_size=2, cfg=one,
-                          decode=False)["latents"].sum())  # warmup
+        float(eager_generate(sd, mod, method, *PROMPTS, seed=args.seed, batch_size=2,
+                             cfg=one, decode=False)["latents"].sum())  # warmup
         ms, peak = timed_sampler(sd, mod, method, one, 2, args.seed, dev)
         times[method] = ms
         log(f"  {method}, latent batch 2, 1 step after a 1-step warmup: {ms:.3f} ms, "
@@ -1225,8 +1477,8 @@ def sd_packed_phase(sd, mod, args, dev):
         return torch.einsum("bhqk,bkhd->bqhd", attn, v)
 
     def latents(m, cfg, lever="einsum", plain=False):
-        run = lambda: with_lever(lever, lambda: sd.generate(
-            m, "or", *PROMPTS, seed=args.seed, batch_size=8, cfg=cfg, decode=False))
+        run = lambda: with_lever(lever, lambda: eager_generate(
+            sd, m, "or", *PROMPTS, seed=args.seed, batch_size=8, cfg=cfg, decode=False))
         out = swapped("_launch_packed", plain_launch, run) if plain else run()
         return out["latents"]
 
@@ -1380,21 +1632,26 @@ def vae_encoder_reference_check(dev, seed):
         raise AssertionError(f"VAEEncoder card-vs-CPU: shape {tuple(got.shape)}, error {rel}")
 
 
-def sd_768_profile(sd, mod, args, dev):
-    """One 768 px ``or`` step under torch.profiler: device time by kernel
-    family, and the device's idle share in that run."""
+def sd_step_profile(sd, mod, args, dev, hw, **calls):
+    """One captured ``hw`` px ``or`` step (the graph built before) under
+    torch.profiler: device time and launches by kernel family (``calls``:
+    the wrapper calls each step must replay), and the device's idle share
+    in that run."""
     import torch
 
-    cfg = sd.SDPipelineConfig(num_inference_steps=1, height=768, width=768)
+    cfg = sd.SDPipelineConfig(num_inference_steps=1, height=hw, width=hw)
     ctxs = sd.prepare_contexts(mod, "or", *PROMPTS, 8)
-    sampler = sd.make_sampler(mod, "or", cfg)
-    fams, wall = profile_by_family(
-        lambda: sampler(*ctxs, generator=torch.Generator(device=dev).manual_seed(args.seed)),
-        ROOT / "chiprun_out" / "chip_smoke_sd768_profile.txt")
+    sampler = sd.make_sampler(mod, "or", cfg, capture=True)
+    gen = lambda: torch.Generator(device=dev).manual_seed(args.seed)
+    float(sampler(*ctxs, generator=gen())[0].sum())  # its warm-up step and capture
+    fams, wall, counts = profile_by_family(
+        lambda: sampler(*ctxs, generator=gen()),
+        OUT / f"chip_smoke_sd{hw}_profile.txt")
     total = sum(fams.values())
-    log(f"  profile (one 768 px or step): {total:.3f} ms device time, {wall:.3f} ms wall "
-        f"under the profiler (device idle {1 - total / wall:.3f}); by family (ms): " +
+    log(f"  profile (one captured {hw} px or step): {total:.3f} ms device time, {wall:.3f} ms "
+        f"wall under the profiler (device idle {1 - total / wall:.3f}); by family (ms): " +
         ", ".join(f"{k} {v:.4f}" for k, v in sorted(fams.items(), key=lambda kv: -kv[1])))
+    expect_profiled_launches(f"captured {hw} px or", counts, 1, **calls)
 
 
 def main(argv=None) -> int:
@@ -1428,7 +1685,7 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     outputs = _build.build_all()
     log(f"  nvcc builds: {time.perf_counter() - t0:.2f} s ({', '.join(outputs)})")
-    out_dir = ROOT / "chiprun_out"
+    out_dir = OUT
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke_build.txt").write_text(
         "".join(f"== {n}\n{o}\n" for n, o in outputs.items()))
@@ -1466,13 +1723,22 @@ def main(argv=None) -> int:
     cfg = sd.SDPipelineConfig(num_inference_steps=args.steps)
     one = sd.SDPipelineConfig(num_inference_steps=1)
     for _ in range(2):  # two synced warmups
-        w = sd.generate(mod, "or", *PROMPTS, seed=args.seed, batch_size=8, cfg=one, decode=False)
+        w = eager_generate(sd, mod, "or", *PROMPTS, seed=args.seed, batch_size=8, cfg=one,
+                           decode=False)
         float(w["latents"].sum())
-    out, counts, wall = counted_generate(sd, mod, "or", cfg, 8, args.seed, decode=True)
-    log(f"  generate: {wall:.3f} s wall")
-    expect_counts(f"512 px or, {args.steps} steps", counts, sd_or_step=args.steps,
-                  flash_mha_eod=10 * args.steps, geglu_ffn_block=16 * args.steps)
+    # the main path: captured, the default on the card; its counts are the
+    # eager warm-up step's and the capture's (the replays count nothing;
+    # phase 5 reads the replayed launches from the profiler)
+    out, counts, wall = counted_generate(sd, mod, "or", cfg, 8, args.seed, decode=True,
+                                         capture=True)
+    log(f"  generate (captured): {wall:.3f} s wall")
+    expect_counts(f"512 px or, {args.steps} steps captured (warm-up step + capture)", counts,
+                  sd_or_step=2, flash_mha_eod=20, geglu_ffn_block=32)
     launches.update({k: counts[k] for k in ("sd_or_step", "flash_mha_eod", "geglu_ffn_block")})
+    eager, eager_counts, _ = counted_generate(sd, mod, "or", cfg, 8, args.seed)
+    expect_counts(f"512 px or, {args.steps} steps eager", eager_counts, sd_or_step=args.steps,
+                  flash_mha_eod=10 * args.steps, geglu_ffn_block=16 * args.steps)
+    same_run(f"512 px or, {args.steps} steps", out, eager)
     lat, kappa, img = out["latents"], out["traces"]["kappa"], out["images"]
     if lat.shape != (8, 64, 64, 4) or not torch.isfinite(lat).all():
         raise AssertionError(f"latents {tuple(lat.shape)} not finite/shaped")
@@ -1483,12 +1749,10 @@ def main(argv=None) -> int:
     log(f"  latents |x|max {lat.abs().max().item():.4f}; kappa last step "
         f"{[round(v, 6) for v in kappa[-1].tolist()]}; images {tuple(img.shape)} uint8 "
         f"mean {img.float().mean().item():.3f}")
-    ctxs = sd.prepare_contexts(mod, "or", *PROMPTS, 8)
-    sampler = sd.make_sampler(mod, "or", cfg)
-    step_ms, peak = timed_sampler(sd, mod, "or", cfg, 8, args.seed, dev)
-    log(f"  sampler: {step_ms:.3f} ms per step (UNet forward at context batch 24 + "
-        f"OR epilogue), peak memory {peak:.2f} GiB")
-    del out, lat, img
+    del out, eager, lat, img
+    torch.cuda.empty_cache()
+    sampler, ctxs = sd_captured_and_eager(sd, mod, cfg, 8, args.seed, dev,
+                                          f"sampler ({args.steps} steps)")
     torch.cuda.empty_cache()
 
     log("phase 3b: SD-1.x, or, 768 px, latent batch 8, 2 steps")
@@ -1515,8 +1779,13 @@ def main(argv=None) -> int:
 
     log("phase 5: profiles and CPU references")
     geglu_launches_only(dev)
+    step_kernels_launch_once(dev)
     profile_step(sampler, ctxs, dev, args.steps)
-    sd_768_profile(sd, mod, args, dev)
+    sd_step_profile(sd, mod, args, dev, 768, sd_or_step=1, flash_mha_eod=5, _kernel_mh=5,
+                    geglu_ffn_block=16, _kernel=5)
+    sd_step_profile(sd, mod, args, dev, 1024, sd_or_step=1, flash_mha_eod=10,
+                    geglu_ffn_block=16, _kernel=5)
+    torch.cuda.empty_cache()
     unet_reference_check(mod, dev)
     vae_encoder_reference_check(dev, args.seed)
     del mod, sampler, ctxs

@@ -15,8 +15,16 @@ Noise is injected or drawn: ``superpose`` takes the per-step unit normals
 package's threefry draws), or draws them from an explicit
 ``torch.Generator``. The step scalars (``t = t_1 - i dt``, ``dlog_alpha_dt``,
 ``beta``, ``sigma``) are float32 values computed on the host, as JAX
-computes them, so no step reads a device scalar. Running log-densities are
-fp32 and max-renormalised every step.
+computes them. Running log-densities are fp32 and max-renormalised every
+step.
+
+SDE + OR runs on static buffers (``_SdeOrLoop``): the scalars go to the
+card once as a per-step table, the unit normals are drawn before the loop
+(the same draws, in the same order, as one per step), and each step reads
+both through a device step index. On the card the step is captured in a
+CUDA graph once and replayed (``capture=None`` or ``True``), the port's
+counterpart of the JAX ``lax.scan``; ``capture=False`` calls the same step
+eagerly, as the CPU does. The other modes run eagerly, step by step.
 """
 
 from __future__ import annotations
@@ -28,6 +36,7 @@ import torch
 
 from ..ops.fused_step import fused_sde_step
 from . import ito
+from .capture import StepLoop, want_capture
 from .kappa import or_weights
 
 ScoreFn = Callable[[torch.Tensor, torch.Tensor], torch.Tensor]  # (t, x[B,*e]) -> (N, B, *e)
@@ -64,17 +73,6 @@ def _mix(weights: torch.Tensor, stacked: torch.Tensor) -> torch.Tensor:
     return torch.sum(w * stacked, dim=0)
 
 
-def sde_step(eps, x, logq, t, dt, score_fn: ScoreFn, schedule, cfg: SuperposeConfig):
-    """One Euler-Maruyama step of the joint reverse SDE under OR with the
-    unit normals ``eps`` (``cifar/dynamics.py:115-136``): mix the
-    sigma-scaled scores with the OR weights, step, update every model's
-    running log-density with the divergence-free Itô estimator, all in
-    ``fused_sde_step``."""
-    return fused_sde_step(score_fn(t, x), x, eps, logq, schedule.dlog_alpha_dt(t),
-                          schedule.beta(t), schedule.sigma(t), dt,
-                          temperature=cfg.or_temperature)
-
-
 def ode_step(probe, x, logq, t, dt, score_fn: ScoreFn, schedule, cfg: SuperposeConfig):
     """One probability-flow step with the Rademacher ``probe``
     (``cifar/dynamics.py:74-95``): one JVP through the stacked oracle gives
@@ -97,6 +95,64 @@ def avg_sde_step(eps, x, logq, t, dt, score_fn: ScoreFn, schedule, cfg: Superpos
     return x + dx, logq
 
 
+def sde_or_step_table(schedule, cfg: SuperposeConfig) -> torch.Tensor:
+    """(steps, 5) fp32 rows (t, dlog_alpha_dt, beta, sigma, dt), each from
+    the host scalars by the ops the step loop applies to them, one step at a
+    time, so every value has its bits."""
+    dt = torch.tensor(cfg.dt, dtype=torch.float32)
+    rows = []
+    for i in range(cfg.n_steps):
+        t = cfg.t_1 - torch.tensor(i, dtype=torch.float32) * dt
+        rows.append(torch.stack([t, torch.as_tensor(schedule.dlog_alpha_dt(t)),
+                                 torch.as_tensor(schedule.beta(t)),
+                                 torch.as_tensor(schedule.sigma(t)), dt]))
+    return torch.stack(rows).to(torch.float32)
+
+
+class _SdeOrLoop(StepLoop):
+    """The SDE + OR trajectory on static buffers. ``step()`` is one
+    Euler-Maruyama step of the joint reverse SDE under OR
+    (``cifar/dynamics.py:115-136``): it takes the step index ``idx`` from
+    device memory, its row of the scalar table and its unit normals, mixes
+    the sigma-scaled scores with the OR weights, steps and updates every
+    model's running log-density with the divergence-free Itô estimator, all
+    in ``fused_sde_step``; x and logq are written in place and ``idx``
+    advanced, so the same launches serve every step, eagerly or replayed
+    from a graph."""
+
+    def __init__(self, score_fn: ScoreFn, cfg: SuperposeConfig, table, x_init, zs, n_models):
+        dev = x_init.device
+        self.score_fn, self.cfg, self.table = score_fn, cfg, table
+        # the inputs are copied: a kept loop loads the next run's over them
+        self.x_init, self.zs = x_init.clone(), zs.clone()
+        self.x = x_init.clone()
+        self.logq = torch.zeros((x_init.shape[0], n_models), dtype=torch.float32, device=dev)
+        self.idx = torch.zeros((1,), dtype=torch.long, device=dev)
+
+    def load(self, x_init, zs):
+        self.x_init.copy_(x_init)
+        self.zs.copy_(zs)
+
+    def reset(self):
+        self.x.copy_(self.x_init)
+        self.logq.zero_()
+        self.idx.zero_()
+
+    def step(self):
+        t, da, beta, sigma, dt = self.table.index_select(0, self.idx)[0].unbind()
+        eps = self.zs.index_select(0, self.idx)[0]
+        new_x, new_logq = fused_sde_step(self.score_fn(t, self.x), self.x, eps, self.logq, da,
+                                         beta, sigma, dt, temperature=self.cfg.or_temperature)
+        self.x.copy_(new_x)
+        self.logq.copy_(new_logq)
+        self.idx += 1
+
+    def run(self, capture: bool):
+        """Every step from the start; returns (x_0, logq), copies."""
+        self.advance(self.table.shape[0], capture)
+        return self.x.clone(), self.logq.clone()
+
+
 @torch.no_grad()
 def superpose(
     x_init: torch.Tensor,
@@ -107,6 +163,8 @@ def superpose(
     *,
     noise: Optional[Sequence[torch.Tensor]] = None,
     generator: Optional[torch.Generator] = None,
+    capture: Optional[bool] = None,
+    graphs: Optional[dict] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, int]:
     """Run the joint reverse trajectory.
 
@@ -119,16 +177,48 @@ def superpose(
       n_models: N.
       noise: optional per-step draws, ``noise[i]`` (B, *event): unit normals
         (SDE) or a Rademacher probe (ODE). Otherwise drawn from ``generator``.
+      capture: SDE + OR only: replay one step captured in a CUDA graph
+        (``None``: on the card, not on the CPU; ``True`` on CPU tensors or
+        another mode raises); ``False`` runs the same step eagerly.
+      graphs: a dict that keeps the captured loop for the next call with the
+        same ``score_fn`` and shapes (the caller's; ``make_generator`` passes
+        its own).
 
     Returns:
       (x_0, logq (B, N) fp32, nfe).
     """
-    steps = {("sde", "or"): sde_step, ("sde", "avg"): avg_sde_step,
-             ("ode", "or"): ode_step, ("ode", "avg"): ode_step}
+    dev = x_init.device
+    nfe = cfg.n_steps * (2 if cfg.mode == "ode" else 1)
+    if (cfg.mode, cfg.operator) == ("sde", "or"):
+        capture = want_capture(capture, dev, "superpose")
+        if noise is not None:
+            zs = torch.stack([torch.as_tensor(noise[i], dtype=x_init.dtype, device=dev)
+                              for i in range(cfg.n_steps)])
+        else:
+            # one draw a step, in order, as the step-by-step loop draws them
+            zs = torch.empty((cfg.n_steps,) + tuple(x_init.shape), dtype=x_init.dtype,
+                             device=dev)
+            for i in range(cfg.n_steps):
+                zs[i] = torch.randn(x_init.shape, generator=generator, dtype=x_init.dtype,
+                                    device=dev)
+        key = (score_fn, tuple(x_init.shape), x_init.dtype, n_models, cfg)
+        loop = (graphs or {}).get(key) if capture else None
+        if loop is None:
+            loop = _SdeOrLoop(score_fn, cfg, sde_or_step_table(schedule, cfg).to(dev), x_init,
+                              zs, n_models)
+            if capture and graphs is not None:
+                graphs[key] = loop
+        else:
+            loop.load(x_init, zs)
+        x, logq = loop.run(capture)
+        return x, logq, nfe
+    steps = {("sde", "avg"): avg_sde_step, ("ode", "or"): ode_step, ("ode", "avg"): ode_step}
     if (cfg.mode, cfg.operator) not in steps:
         raise ValueError(f"unknown mode / operator: {cfg.mode} / {cfg.operator}")
+    if capture:
+        raise ValueError(f"capture=True: only sde / or runs as a captured step, not "
+                         f"{cfg.mode} / {cfg.operator}")
     step = steps[cfg.mode, cfg.operator]
-    dev = x_init.device
     x = x_init
     logq = torch.zeros((x.shape[0], n_models), dtype=torch.float32, device=dev)
     # float32 host scalars, in the JAX scan's order of operations
@@ -142,6 +232,5 @@ def superpose(
         else:
             z = torch.randn(x.shape, generator=generator, dtype=x.dtype, device=dev)
         x, logq = step(z, x, logq, t, dt, score_fn, schedule, cfg)
-    nfe = cfg.n_steps * (2 if cfg.mode == "ode" else 1)
     return x, logq, nfe
 

@@ -26,9 +26,15 @@ each row that fits one kv block reaches the packed-layout ``_kernel_mh_nat``
 on views of the packed projections (at 768 px the 9216-token rows stay on
 the online-softmax kernel). ``einsum`` is the explicit fp32 softmax and
 ``dpa`` one ``scaled_dot_product_attention`` call (no TPU kernel in JAX
-either). Every FFN
-sub-block is :func:`geglu_ffn_block`: the JAX ``ffn_impl`` lever is not
-carried, the port is fused only. ``upsample_impl`` as in JAX.
+either). ``ffn_impl`` as in JAX: ``"fused"`` (default) runs every FFN
+sub-block through :func:`geglu_ffn_block`, ``"einsum"`` the plain fp32
+LayerNorm, GEGLU projection, exact gelu and ``ff_out`` Linear over the same
+parameters. ``upsample_impl`` as in JAX.
+
+The timestep embedding's frequencies and the subpixel upsampler's phase
+taps are non-persistent buffers, built once on the CPU when the module is
+made (the state dict is unchanged): a forward copies nothing from the
+host, so a sampler step can be captured in a CUDA graph.
 
 **Conditioning dedup**: when ``context.shape[0]`` is a multiple g of the
 latent batch, the latents are shared by g conditioning groups (group-major).
@@ -51,16 +57,25 @@ from ...ops.geglu_ffn import geglu_ffn_block
 from ..unet import GroupNorm32, LayerNorm32
 
 
-def sd_timestep_embedding(t: torch.Tensor, dim: int, max_period: float = 10_000.0):
-    """Diffusers ``Timesteps``: exponent ``arange(half)/half``, cos first."""
+def sd_timestep_freqs(dim: int, max_period: float = 10_000.0) -> torch.Tensor:
+    """The embedding's (dim // 2,) fp32 frequencies, computed on the CPU."""
     half = dim // 2
-    log_max = torch.log(torch.tensor(max_period, dtype=torch.float32))
-    freqs = torch.exp(-log_max * torch.arange(half, dtype=torch.float32) / half)
-    args = t.float().reshape(-1, 1) * freqs.to(t.device)[None]
+    log_max = torch.log(torch.tensor(max_period, dtype=torch.float32, device="cpu"))
+    return torch.exp(-log_max * torch.arange(half, dtype=torch.float32, device="cpu") / half)
+
+
+def sd_timestep_embedding(t: torch.Tensor, dim: int, max_period: float = 10_000.0,
+                          freqs: Optional[torch.Tensor] = None):
+    """Diffusers ``Timesteps``: exponent ``arange(half)/half``, cos first.
+    ``freqs``: :func:`sd_timestep_freqs` already on ``t``'s device."""
+    if freqs is None:
+        freqs = sd_timestep_freqs(dim, max_period).to(t.device)
+    args = t.float().reshape(-1, 1) * freqs[None]
     return torch.cat([torch.cos(args), torch.sin(args)], dim=-1)
 
 
 ATTN_IMPLS = ("flash_eod", "flash_eo", "flash", "flash_nat", "einsum", "dpa")
+FFN_IMPLS = ("fused", "einsum")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -83,13 +98,16 @@ class SDUNetConfig:
     # 'subpixel': one 2x2 conv with 4x the channels on the small grid plus a
     # phase interleave; 'repeat': nearest 2x repeat + 3x3 conv. Same params.
     upsample_impl: str = "subpixel"
-    # attention kernel selection, see the module docstring. The FFN is
-    # always the fused kernel (no ``ffn_impl``).
+    # attention kernel selection, see the module docstring
     attn_impl: str = "flash_eod"
+    # 'fused': the geglu_ffn_block kernel; 'einsum': plain LN + GEGLU + Dense
+    ffn_impl: str = "fused"
 
     def __post_init__(self):
         if self.attn_impl not in ATTN_IMPLS:
             raise ValueError(f"attn_impl {self.attn_impl!r}; one of {ATTN_IMPLS}")
+        if self.ffn_impl not in FFN_IMPLS:
+            raise ValueError(f"ffn_impl {self.ffn_impl!r}; one of {FFN_IMPLS}")
 
     @staticmethod
     def tiny() -> "SDUNetConfig":
@@ -166,11 +184,13 @@ class _GEGLUProj(nn.Module):
 
 
 class TransformerBlock(nn.Module):
-    """Self-attn -> cross-attn -> fused LN + GEGLU FFN, pre-norm residuals."""
+    """Self-attn -> cross-attn -> LN + GEGLU FFN, pre-norm residuals; the
+    FFN fused (``ffn_impl="fused"``) or plain (``"einsum"``)."""
 
     def __init__(self, dim: int, heads: int, context_dim: int, dtype=torch.bfloat16,
-                 attn_impl: str = "flash_eod"):
+                 attn_impl: str = "flash_eod", ffn_impl: str = "fused"):
         super().__init__()
+        self.ffn_impl = ffn_impl
         self.norm1 = LayerNorm32(dim)
         self.attn1 = CrossAttention(dim, heads, dtype=dtype, attn_impl=attn_impl)
         self.norm2 = LayerNorm32(dim)
@@ -186,6 +206,12 @@ class TransformerBlock(nn.Module):
             x = x.repeat(context.shape[0] // x.shape[0], 1, 1)
         x = x + self.attn2(self.norm2(x), context)
         proj = self.ff_geglu.proj
+        if self.ffn_impl == "einsum":
+            # JAX's plain lowering: fp32 LN, the GEGLU projection and the
+            # out-projection in the weights' dtype, exact (erf) gelu
+            h = proj(self.norm3(x).to(proj.weight.dtype))
+            value, gate = h.chunk(2, dim=-1)
+            return x + self.ff_out(value * F.gelu(gate))
         return geglu_ffn_block(
             x.contiguous(), self.norm3.weight, self.norm3.bias, proj.weight,
             proj.bias, self.ff_out.weight, self.ff_out.bias, eps=self.norm3.eps)
@@ -195,12 +221,13 @@ class SpatialTransformer(nn.Module):
     """GroupNorm -> proj_in -> transformer block -> proj_out, residual."""
 
     def __init__(self, channels: int, heads: int, context_dim: int, dtype=torch.bfloat16,
-                 attn_impl: str = "flash_eod"):
+                 attn_impl: str = "flash_eod", ffn_impl: str = "fused"):
         super().__init__()
         # diffusers Transformer2DModel input GroupNorm uses eps 1e-6
         self.norm = GroupNorm32(channels, eps=1e-6)
         self.proj_in = _linear(channels, channels, dtype)
-        self.block_0 = TransformerBlock(channels, heads, context_dim, dtype, attn_impl)
+        self.block_0 = TransformerBlock(channels, heads, context_dim, dtype, attn_impl,
+                                        ffn_impl)
         self.proj_out = _linear(channels, channels, dtype)
 
     def forward(self, x: torch.Tensor, context: torch.Tensor) -> torch.Tensor:
@@ -256,11 +283,13 @@ class SubpixelUpsample(nn.Conv2d):
 
     def __init__(self, in_ch: int, out_ch: int):
         super().__init__(in_ch, out_ch, 3, padding=1, dtype=torch.float32)
+        self.register_buffer("phase_taps", _PHASE_TAPS.to(self.weight.device),
+                             persistent=False)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         f = self.out_channels
         b, _, h, w = x.shape
-        ms = _PHASE_TAPS.to(x.device)
+        ms = self.phase_taps
         k4 = torch.einsum("dau,ebv,fcuv->defcab", ms, ms, self.weight.float())
         k4 = k4.reshape(4 * f, -1, 2, 2).to(x.dtype)
         y = F.conv2d(x, k4, self.bias.repeat(4).to(x.dtype), padding=1)
@@ -287,6 +316,9 @@ class SDUNet(nn.Module):
         temb_ch = 4 * ch0
         heads, ctx_dim = cfg.attention_head_dim, cfg.cross_attention_dim
         self.time_embed_1 = _linear(ch0, temb_ch, dtype)
+        self.register_buffer("temb_freqs",
+                             sd_timestep_freqs(ch0).to(self.time_embed_1.weight.device),
+                             persistent=False)
         self.time_embed_2 = _linear(temb_ch, temb_ch, dtype)
         self.conv_in = nn.Conv2d(cfg.in_channels, ch0, 3, padding=1, dtype=dtype)
         n = len(cfg.block_out_channels)
@@ -297,8 +329,8 @@ class SDUNet(nn.Module):
                 self.add_module(f"down_{i}_res_{j}", ResnetBlock2D(ch, out_ch, temb_ch, dtype))
                 ch = out_ch
                 if block_type == "CrossAttnDownBlock2D":
-                    self.add_module(f"down_{i}_attn_{j}",
-                                    SpatialTransformer(ch, heads, ctx_dim, dtype, cfg.attn_impl))
+                    self.add_module(f"down_{i}_attn_{j}", SpatialTransformer(
+                        ch, heads, ctx_dim, dtype, cfg.attn_impl, cfg.ffn_impl))
                 skips.append(ch)
             if i != n - 1:
                 # symmetric stride-2 padding, as torch's Downsample2D
@@ -306,7 +338,8 @@ class SDUNet(nn.Module):
                                 nn.Conv2d(ch, ch, 3, stride=2, padding=1, dtype=dtype))
                 skips.append(ch)
         self.mid_res_0 = ResnetBlock2D(ch, ch, temb_ch, dtype)
-        self.mid_attn = SpatialTransformer(ch, heads, ctx_dim, dtype, cfg.attn_impl)
+        self.mid_attn = SpatialTransformer(ch, heads, ctx_dim, dtype, cfg.attn_impl,
+                                           cfg.ffn_impl)
         self.mid_res_1 = ResnetBlock2D(ch, ch, temb_ch, dtype)
         for i, block_type in enumerate(cfg.up_block_types):
             out_ch = cfg.block_out_channels[n - 1 - i]
@@ -315,8 +348,8 @@ class SDUNet(nn.Module):
                                 ResnetBlock2D(ch + skips.pop(), out_ch, temb_ch, dtype))
                 ch = out_ch
                 if block_type == "CrossAttnUpBlock2D":
-                    self.add_module(f"up_{i}_attn_{j}",
-                                    SpatialTransformer(ch, heads, ctx_dim, dtype, cfg.attn_impl))
+                    self.add_module(f"up_{i}_attn_{j}", SpatialTransformer(
+                        ch, heads, ctx_dim, dtype, cfg.attn_impl, cfg.ffn_impl))
             if i != n - 1:
                 self.add_module(f"up_{i}_upsample", SubpixelUpsample(ch, ch))
         self.norm_out = GroupNorm32(ch)
@@ -326,7 +359,7 @@ class SDUNet(nn.Module):
         cfg, dt = self.config, self.dtype
         t = torch.as_tensor(t, dtype=torch.float32, device=x.device)
         temb = sd_timestep_embedding(t.reshape(-1).expand(x.shape[0]),
-                                     cfg.block_out_channels[0])
+                                     cfg.block_out_channels[0], freqs=self.temb_freqs)
         temb = self.time_embed_2(F.silu(self.time_embed_1(temb.to(dt))))
         context = context.to(dt)
         h = x.to(dt).permute(0, 3, 1, 2).contiguous(memory_format=torch.channels_last)

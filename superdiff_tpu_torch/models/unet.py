@@ -81,14 +81,23 @@ class LayerNorm32(nn.Module):
         return (x - mean) * mul + self.bias.float()
 
 
-def timestep_embedding(t: torch.Tensor, dim: int, max_period: float = 10_000.0):
+def timestep_freqs(dim: int, max_period: float = 10_000.0) -> torch.Tensor:
+    """The embedding's (dim // 2,) fp32 frequencies, computed on the CPU."""
+    half = dim // 2
+    log_max = torch.log(torch.tensor(max_period, dtype=torch.float32, device="cpu"))
+    return torch.exp(-log_max * torch.arange(half, dtype=torch.float32, device="cpu")
+                     / (half - 1))
+
+
+def timestep_embedding(t: torch.Tensor, dim: int, max_period: float = 10_000.0,
+                       freqs: Optional[torch.Tensor] = None):
     """Sinusoidal timestep embedding (DDPM convention): exponent
     ``arange(half) / (half - 1)``, sin first. ``t`` is used as given (callers
-    pre-scale). Returns (B, dim) float32."""
-    half = dim // 2
-    log_max = torch.log(torch.tensor(max_period, dtype=torch.float32))
-    freqs = torch.exp(-log_max * torch.arange(half, dtype=torch.float32) / (half - 1))
-    args = t.float().reshape(-1, 1) * freqs.to(t.device)[None]
+    pre-scale). ``freqs``: :func:`timestep_freqs` already on ``t``'s device.
+    Returns (B, dim) float32."""
+    if freqs is None:
+        freqs = timestep_freqs(dim, max_period).to(t.device)
+    args = t.float().reshape(-1, 1) * freqs[None]
     emb = torch.cat([torch.sin(args), torch.cos(args)], dim=-1)
     if dim % 2 == 1:
         emb = F.pad(emb, (0, 1))
@@ -215,6 +224,9 @@ class ScoreUNet(nn.Module):
         self._counts: dict[str, int] = {}
         temb_ch = 4 * nf
         self.Dense_0 = _Dense(nf, temb_ch, dtype)
+        # built on the CPU once, so a forward copies nothing from the host
+        self.register_buffer("temb_freqs", timestep_freqs(nf).to(self.Dense_0.weight.device),
+                             persistent=False)
         self.Dense_1 = _Dense(temb_ch, temb_ch, dtype)
         self.Embed_0 = nn.Embedding(num_classes, temb_ch) if num_classes is not None else None
         self.Conv_0 = _Conv(in_channels, nf, dtype)
@@ -267,7 +279,8 @@ class ScoreUNet(nn.Module):
     def forward(self, t, x: torch.Tensor, y: Optional[torch.Tensor] = None) -> torch.Tensor:
         dt = self.dtype
         t = torch.as_tensor(t, dtype=torch.float32, device=x.device)
-        temb = self.Dense_0(timestep_embedding(t.reshape(-1), self.nf).to(dt))
+        temb = self.Dense_0(timestep_embedding(t.reshape(-1), self.nf,
+                                                freqs=self.temb_freqs).to(dt))
         temb = self.Dense_1(F.silu(temb))
         if self.Embed_0 is not None:
             if y is None:

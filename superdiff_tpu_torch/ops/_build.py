@@ -143,6 +143,31 @@ def ptr(t) -> ctypes.c_void_p:
     return ctypes.c_void_p(t.data_ptr())
 
 
+def device_scalars(name: str, dev, *values):
+    """Each value as a 0-d fp32 tensor on ``dev`` for a kernel that reads
+    its step scalars from device memory. A 0-d (or one-element) fp32 tensor
+    on ``dev`` is taken as it is, with no copy, so a launch captured in a
+    CUDA graph reads whatever it holds at replay; host values (floats, CPU
+    tensors) go to the card in one small buffer, a copy that a capture does
+    not allow. Raises on a CUDA tensor of another device, dtype or size."""
+    import torch
+
+    out, host = list(values), []
+    for i, v in enumerate(values):
+        if isinstance(v, torch.Tensor) and v.is_cuda:
+            if v.device != dev or v.dtype != torch.float32 or v.numel() != 1:
+                raise ValueError(f"{name}: a device scalar must be a one-element fp32 tensor "
+                                 f"on {dev}, got {tuple(v.shape)} {v.dtype} on {v.device}")
+            out[i] = v.reshape(())
+        else:
+            host.append(i)
+    if host:
+        buf = torch.tensor([float(values[i]) for i in host], dtype=torch.float32, device=dev)
+        for j, i in enumerate(host):
+            out[i] = buf[j]
+    return out
+
+
 def require_cuda(name: str, *tensors) -> None:
     """Raise unless every tensor lies on one CUDA device."""
     dev = tensors[0].device

@@ -12,10 +12,12 @@ max-renormalisation in one pass over device memory (all fp32):
              with v_n = da x - 2 beta s_n, f_next = da (x + dx)
   new_logq = renormalize(logq + dlogq)
 
-The Hopper kernel is ``csrc/fused_step.cu`` (one block per batch row; see
-its header for the byte bound and the design). ``fused_sde_step`` launches
-it for CUDA tensors and runs :func:`fused_sde_step_reference` for CPU
-tensors; it never falls back from one to the other.
+The Hopper kernel is ``csrc/fused_step.cu`` (one launch, each batch row
+split over a thread-block cluster; see its header for the byte bound and
+the design); da, beta, sigma and dt are read from device memory, so a
+launch captured in a CUDA graph serves every step. ``fused_sde_step``
+launches it for CUDA tensors and runs :func:`fused_sde_step_reference` for
+CPU tensors; it never falls back from one to the other.
 """
 
 from __future__ import annotations
@@ -29,7 +31,8 @@ from . import _build
 _vp, _ci, _cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
     "fused_sde_step_max_models": (_ci, []),
-    "fused_sde_step_launch": (_ci, [_vp] * 6 + [_ci] * 3 + [_cf] * 5 + [_vp]),
+    "fused_sde_step_cluster_size": (_ci, [_ci]),
+    "fused_sde_step_launch": (_ci, [_vp] * 6 + [_ci] * 3 + [_vp] * 4 + [_cf, _vp]),
 }
 
 
@@ -41,8 +44,8 @@ def fused_sde_step_reference(sscores, x, eps, logq, da, beta, sigma, dt, *,
                              temperature=1e6):
     """Plain PyTorch version in the JAX reference's order of operations
     (CPU path, test oracle). sscores (N, B, D), x and eps (B, D), logq (B, N),
-    all fp32; the scalars are float32 host values (0-d tensors or floats),
-    so the scalar arithmetic runs in float32."""
+    all fp32; the scalars are float32 values (0-d tensors on any device, or
+    floats), so the scalar arithmetic runs in float32."""
     da, beta, sigma, dt = map(_f32, (da, beta, sigma, dt))
     w = torch.softmax(temperature * logq, dim=-1)
     balanced = torch.einsum("bn,nbd->bd", w, sscores)
@@ -68,13 +71,14 @@ def _launch(sscores, x, eps, logq, da, beta, sigma, dt, temperature):
     if not 1 <= n <= lib.fused_sde_step_max_models():
         raise ValueError(f"fused_sde_step: {n} models; the kernel takes 1 to "
                          f"{lib.fused_sde_step_max_models()}")
+    sigma, beta, da, dt = _build.device_scalars("fused_sde_step", x.device, sigma, beta,
+                                                da, dt)
     new_x = torch.empty_like(x)
     new_logq = torch.empty_like(logq)
     p = _build.ptr
     err = lib.fused_sde_step_launch(
         p(sscores), p(x), p(eps), p(logq), p(new_x), p(new_logq), n, b, d,
-        float(sigma), float(beta), float(da), float(dt), float(temperature),
-        _build.stream_ptr(x))
+        p(sigma), p(beta), p(da), p(dt), float(temperature), _build.stream_ptr(x))
     _build.check(err, "fused_sde_step")
     fused_sde_step.launches += 1
     return new_x, new_logq
@@ -84,9 +88,11 @@ def fused_sde_step(sscores, x, eps, logq, da, beta, sigma, dt, *, temperature=1e
     """One joint SDE/OR step: returns (x + dx, renormalised logq (B, N)).
 
     sscores (N, B, *event), x and eps (B, *event); the latents are flattened
-    to (B, D) and the new x comes back in x's shape. The scalars are float32
-    host values, so the launch reads no device scalar. CUDA tensors go to the
-    kernel (or raise); CPU tensors take :func:`fused_sde_step_reference`.
+    to (B, D) and the new x comes back in x's shape. The scalars are float32:
+    on the card the kernel reads them from device memory, 0-d fp32 CUDA
+    tensors where they lie (what a captured sampler step passes), floats
+    after a copy to the card. CUDA tensors go to the kernel (or raise); CPU
+    tensors take :func:`fused_sde_step_reference`.
     """
     b = x.shape[0]
     s2 = sscores.reshape(sscores.shape[0], b, -1)
@@ -101,3 +107,9 @@ def fused_sde_step(sscores, x, eps, logq, da, beta, sigma, dt, *, temperature=1e
 
 
 fused_sde_step.launches = 0
+
+
+def cluster_size(d: int) -> int:
+    """CTAs per row (the cluster size) the kernel takes at row length ``d``
+    on 16-byte aligned tensors: one 16-byte unit per thread, at most 4."""
+    return _build.load("fused_step", _SIGNATURES).fused_sde_step_cluster_size(d)

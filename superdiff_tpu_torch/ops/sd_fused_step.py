@@ -11,9 +11,11 @@ device memory (all fp32):
   dx       = 2 dsigma vf + sqrt(2 |dsigma| sigma) eps
   dll_i    = -sum(v_i (dx + dsigma v_i)) / sigma          (i = obj, bg)
 
-The Hopper kernel is ``csrc/sd_fused_step.cu``. ``sd_or_step`` launches it
-for CUDA tensors and runs :func:`sd_or_step_reference` for CPU tensors; it
-never falls back from one to the other.
+The Hopper kernel is ``csrc/sd_fused_step.cu``: one launch, each row split
+over a thread-block cluster of 8 CTAs; sigma and dsigma are read from device memory,
+so a launch captured in a CUDA graph serves every step. ``sd_or_step``
+launches it for CUDA tensors and runs :func:`sd_or_step_reference` for CPU
+tensors; it never falls back from one to the other.
 """
 
 from __future__ import annotations
@@ -28,8 +30,9 @@ from . import _build
 
 _vp, _ci, _cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
-    "sd_or_step_nsplit": (_ci, [_ci, _ci]),
-    "sd_or_step_launch": (_ci, [_vp] * 10 + [_ci] * 3 + [_cf] * 5 + [_vp]),
+    "sd_or_step_cluster_size": (_ci, []),
+    "sd_or_step_launch": (_ci, [_vp] * 11 + [_ci] * 2 + [_cf] * 3 + [_vp]),
+    "sd_step_empty_launch": (_ci, [_ci, _ci, _vp]),
 }
 
 
@@ -41,8 +44,8 @@ def sd_or_step_reference(v_obj, v_bg, v_unc, x, eps, ll, sigma, dsigma,
                          *, temperature=1.0, logp=0.0, guidance=7.5):
     """Plain PyTorch version with the kernel's math (CPU path, test oracle).
 
-    ``sigma``/``dsigma`` are float32 scalars (0-d tensors or floats); the
-    scalar arithmetic runs in float32, as the kernel's does."""
+    ``sigma``/``dsigma`` are float32 scalars (0-d tensors on any device, or
+    floats); the scalar arithmetic runs in float32, as the kernel's does."""
     sigma, dsigma = _f32(sigma), _f32(dsigma)
     kappa = kappa_or(ll[:, 0], ll[:, 1], temperature, logp)
     vf = v_unc + guidance * ((v_bg - v_unc) + kappa[:, None] * (v_obj - v_bg))
@@ -63,17 +66,16 @@ def _launch(v_obj, v_bg, v_unc, x, eps, ll, sigma, dsigma, temperature, logp,
                 f"{tuple(t.shape)} {t.dtype}")
     if ll.shape != (b, 2) or ll.dtype != torch.float32 or not ll.is_contiguous():
         raise ValueError(f"sd_or_step: ll must be contiguous fp32 ({b}, 2)")
+    sigma, dsigma = _build.device_scalars("sd_or_step", x.device, sigma, dsigma)
     lib = _build.load("sd_fused_step", _SIGNATURES)
-    nsplit = lib.sd_or_step_nsplit(b, d)
     new_x = torch.empty_like(x)
     new_ll = torch.empty_like(ll)
     kappa = torch.empty((b,), dtype=torch.float32, device=x.device)
-    partial = torch.empty((b, nsplit, 2), dtype=torch.float32, device=x.device)
     p = _build.ptr
     err = lib.sd_or_step_launch(
         p(v_obj), p(v_bg), p(v_unc), p(x), p(eps), p(ll), p(new_x), p(new_ll),
-        p(kappa), p(partial), b, d, nsplit, float(sigma), float(dsigma),
-        float(temperature), float(logp), float(guidance), _build.stream_ptr(x))
+        p(kappa), p(sigma), p(dsigma), b, d, float(temperature), float(logp),
+        float(guidance), _build.stream_ptr(x))
     _build.check(err, "sd_or_step")
     sd_or_step.launches += 1
     return new_x, new_ll, kappa
@@ -83,9 +85,11 @@ def sd_or_step(v_obj, v_bg, v_unc, x, eps, ll, sigma, dsigma,
                *, temperature=1.0, logp=0.0, guidance=7.5):
     """One OR step on (B, D) fp32 rows: returns (new_x, new_ll (B, 2), kappa (B,)).
 
-    ``sigma``/``dsigma`` are float32 host scalars (the sampler's grid values),
-    so the launch reads no device scalar. CUDA tensors go to the kernel (or
-    raise); CPU tensors take :func:`sd_or_step_reference`.
+    ``sigma``/``dsigma`` are float32 scalars. On the card the kernel reads
+    them from device memory: 0-d fp32 CUDA tensors are read where they lie
+    (what a captured sampler step passes), floats are first copied to the
+    card. CUDA tensors go to the kernel (or raise); CPU tensors take
+    :func:`sd_or_step_reference`.
     """
     if x.is_cuda:
         return _launch(v_obj, v_bg, v_unc, x, eps, ll, sigma, dsigma,
@@ -96,3 +100,17 @@ def sd_or_step(v_obj, v_bg, v_unc, x, eps, ll, sigma, dsigma,
 
 
 sd_or_step.launches = 0
+
+
+def cluster_size() -> int:
+    """CTAs per row (the cluster size) the kernel launches."""
+    return _build.load("sd_fused_step", _SIGNATURES).sd_or_step_cluster_size()
+
+
+def empty_launch(like: torch.Tensor, cluster: int, rows: int) -> None:
+    """Launch an empty kernel on ``rows`` clusters of ``cluster`` CTAs on the
+    stream of ``like``'s device: the floor of one launch, for timing (not a
+    kernel of the path, so not counted)."""
+    lib = _build.load("sd_fused_step", _SIGNATURES)
+    _build.check(lib.sd_step_empty_launch(cluster, rows, _build.stream_ptr(like)),
+                 "sd_step_empty_launch")

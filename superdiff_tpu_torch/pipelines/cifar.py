@@ -97,6 +97,7 @@ def make_generator(
     operator: str = "or",
     n_steps: Optional[int] = None,
     labels=None,
+    capture: Optional[bool] = None,
 ):
     """Batch sampler over the superposition of ``models``.
 
@@ -106,7 +107,10 @@ def make_generator(
     and the per-step draws (steps, B, H, W, C), unit normals for the SDE or
     Rademacher probes for the ODE; otherwise both are drawn from
     ``generator``. ``labels`` (B,) integers, for class-conditioned models.
-    On CUDA tensors the SDE + OR step runs the ``fused_sde_step`` kernel.
+    On CUDA tensors the SDE + OR step runs the ``fused_sde_step`` kernel,
+    replayed from a CUDA graph unless ``capture=False`` (``superpose``'s
+    ``capture``); the closure keeps its captured loop, so a later call
+    copies its inputs in and replays.
     """
     models = list(models)
     dev = next(models[0].parameters()).device
@@ -117,6 +121,7 @@ def make_generator(
                              mode=mode, operator=operator)
     shape = (cfg.eval_batch_size, cfg.image_size, cfg.image_size, cfg.num_channels)
     schedule = VPSchedule()
+    graphs = {}
 
     def generate(generator: Optional[torch.Generator] = None, noise=None):
         if noise is None:
@@ -125,7 +130,7 @@ def make_generator(
             x1 = torch.as_tensor(noise[0], dtype=torch.float32, device=dev)
             zs = noise[1]
         x0, logq, _ = superpose(x1, score_fn, schedule, sp_cfg, len(models), noise=zs,
-                                generator=generator)
+                                generator=generator, capture=capture, graphs=graphs)
         return x0, logq
 
     return generate

@@ -20,6 +20,14 @@ Noise: the sampler takes injected draws (the initial latent, the per-step
 unit normals and, for ``and_ode``, the per-step Rademacher probes), so tests
 can hand in the JAX package's threefry draws; without them it draws from an
 explicit ``torch.Generator``.
+
+``or`` runs on static buffers (``_OrLoop``): each step reads its scalars
+(t, sqrt(sigma^2 + 1), sigma, dsigma, a table built on the host in fp32 by
+the ops the other methods' loop uses) and its noise through a device step
+index. On the card it is captured in a CUDA graph once and replayed every
+step (``capture=None`` or ``True``), the port's counterpart of the JAX
+sampler's ``lax.scan``; ``capture=False`` calls the same step eagerly, as
+the CPU does. The other methods run eagerly.
 """
 
 from __future__ import annotations
@@ -31,6 +39,7 @@ import torch
 
 from ..core import ito
 from ..core import kappa as kp
+from ..core.capture import StepLoop, want_capture
 from ..core.schedules import SigmaGrid
 from ..models.sd.clip import CLIPTextConfig, CLIPTextEncoder, Tokenizer
 from ..models.from_jax import init_like_flax_
@@ -122,6 +131,75 @@ def _sum_ev(x: torch.Tensor) -> torch.Tensor:
     return torch.sum(x.float(), dim=tuple(range(1, x.ndim)))
 
 
+def or_step_table(timesteps: torch.Tensor, sigmas: torch.Tensor) -> torch.Tensor:
+    """(steps, 4) fp32 rows (t, sqrt(sigma^2 + 1), sigma, dsigma) of the
+    sigma grid, each from the host scalars by the ops the sampler's loop
+    applies to them, one step at a time, so every value has its bits."""
+    rows = []
+    for i in range(len(timesteps)):
+        sigma = sigmas[i]
+        dsigma = sigmas[i + 1] - sigmas[i]
+        rows.append(torch.stack([timesteps[i], torch.sqrt(sigma**2 + 1.0), sigma, dsigma]))
+    return torch.stack(rows)
+
+
+class _OrLoop(StepLoop):
+    """The ``or`` sampler on static buffers. ``step()`` takes the step index
+    ``idx`` from device memory: its row of the scalar table and its unit
+    normals, one UNet forward over the conditioning batch, ``sd_or_step``,
+    then x, ll and the trace rows written in place and ``idx`` advanced, so
+    the same launches serve every step, eagerly or replayed from a graph."""
+
+    def __init__(self, mod: SDModules, cfg: SDPipelineConfig, table, x_init, zs, big_c):
+        dev = x_init.device
+        self.unet, self.cfg, self.table = mod.unet, cfg, table
+        # the inputs are copied: a kept loop loads the next run's over them
+        self.x_init, self.zs, self.big_c = x_init.clone(), zs.clone(), big_c.clone()
+        b, n = x_init.shape[0], table.shape[0]
+        self.x = x_init.clone()
+        self.ll = torch.ones((b, 2), dtype=torch.float32, device=dev)
+        self.idx = torch.zeros((1,), dtype=torch.long, device=dev)
+        self.kappa = torch.zeros((n, b), dtype=torch.float32, device=dev)
+        self.lls = torch.zeros((n, b, 2), dtype=torch.float32, device=dev)
+
+    def load(self, x_init, zs, big_c):
+        """This run's inputs into the static buffers."""
+        self.x_init.copy_(x_init)
+        self.zs.copy_(zs)
+        self.big_c.copy_(big_c)
+
+    def reset(self):
+        self.x.copy_(self.x_init)
+        self.ll.fill_(1.0)
+        self.idx.zero_()
+
+    def step(self):
+        cfg, x, b = self.cfg, self.x, self.x.shape[0]
+        t, root, sigma, dsigma = self.table.index_select(0, self.idx)[0].unbind()
+        eps = self.zs.index_select(0, self.idx)
+        big_x = x if cfg.cond_dedup else x.repeat(3, 1, 1, 1)
+        v_obj, v_bg, v_unc = self.unet(big_x / root, t, self.big_c).chunk(3)
+        flat = lambda a: a.reshape(b, -1).contiguous()
+        new_x, new_ll, kappa = sd_or_step(
+            flat(v_obj), flat(v_bg), flat(v_unc), flat(x), flat(eps), self.ll, sigma, dsigma,
+            temperature=cfg.temperature, logp=cfg.logp, guidance=cfg.guidance_scale)
+        x.copy_(new_x.reshape(x.shape))
+        self.ll.copy_(new_ll)
+        self.kappa.index_copy_(0, self.idx, kappa[None])
+        self.lls.index_copy_(0, self.idx, new_ll[None])
+        self.idx += 1
+
+    def run(self, capture: bool):
+        """Every step from the start; returns (latents, traces), copies."""
+        self.advance(self.table.shape[0], capture)
+        ll = self.ll.clone()
+        traces = {"kappa": self.kappa.clone(), "ll_obj": self.lls[..., 0].contiguous(),
+                  "ll_bg": self.lls[..., 1].contiguous(), "final_ll_obj": ll[:, 0],
+                  "final_ll_bg": ll[:, 1],
+                  "final_ll_uncond": torch.ones_like(ll[:, 0])}
+        return self.x.clone(), traces
+
+
 @torch.no_grad()
 def superdiff_sd_sample(
     mod: SDModules,
@@ -133,6 +211,8 @@ def superdiff_sd_sample(
     *,
     generator: Optional[torch.Generator] = None,
     noise: Optional[Tuple[torch.Tensor, ...]] = None,
+    capture: Optional[bool] = None,
+    graphs: Optional[dict] = None,
 ) -> Tuple[torch.Tensor, dict]:
     """Run one composed generation; returns (final latents NHWC fp32, traces).
 
@@ -142,9 +222,17 @@ def superdiff_sd_sample(
     Traces: per-step ``kappa``, ``ll_obj``, ``ll_bg`` (steps, B) and the
     final log-likelihoods (``final_ll_uncond`` moves only under ``sd_*``),
     all fp32.
+    ``capture`` (``or`` only): replay one step captured in a CUDA graph
+    (``None``: on the card, not on the CPU; ``True`` on CPU tensors or
+    another method raises); ``False`` runs the same step eagerly.
+    ``graphs``: a dict that keeps the captured loop for the next call of the
+    same shapes (the caller's; ``make_sampler`` passes its own).
     """
     _check_method(method)
     dev = ctx_obj.device
+    if method != "or" and capture:
+        raise ValueError(f"capture=True: only 'or' runs as a captured step, not {method!r}")
+    capture = method == "or" and want_capture(capture, dev, "superdiff_sd_sample")
     g = cfg.guidance_scale
     n = cfg.num_inference_steps
     grid = SigmaGrid.euler_discrete(n)
@@ -163,6 +251,16 @@ def superdiff_sd_sample(
     is_sd_baseline = method.startswith("sd_")
     big_c = torch.cat([ctx_obj, ctx_unc, ctx_unc] if is_sd_baseline
                       else [ctx_obj, ctx_bg, ctx_unc])
+    if method == "or":
+        key = (tuple(x.shape), tuple(big_c.shape), big_c.dtype, dataclasses.astuple(cfg))
+        loop = (graphs or {}).get(key) if capture else None
+        if loop is None:
+            loop = _OrLoop(mod, cfg, or_step_table(timesteps, sigmas).to(dev), x, zs, big_c)
+            if capture and graphs is not None:
+                graphs[key] = loop
+        else:
+            loop.load(x, zs, big_c)
+        return loop.run(capture)
     # ll starts at 1.0 as in the reference: a constant that cancels in kappa
     ll_obj = ll_bg = ll_unc = torch.ones(b, dtype=torch.float32, device=dev)
     kappa = torch.full((b,), 0.5, dtype=torch.float32, device=dev)
@@ -177,7 +275,7 @@ def superdiff_sd_sample(
             """One UNet forward over the conditioning batch."""
             return mod.unet(big_x / root, t, big_c)
 
-        if method not in ("or", "and_ode", "avg_ode"):
+        if method not in ("and_ode", "avg_ode"):
             noise_i = torch.sqrt(2.0 * abs(dsigma) * sigma) * zs[i]
         if is_sd_baseline:
             v_obj, v_unc, v_unc_only = vels(torch.cat([x, x, x_unc])).chunk(3)
@@ -210,31 +308,22 @@ def superdiff_sd_sample(
             dlls = ito.dlogq_ode_sigma_space(torch.stack([v_obj, v_bg]),
                                              torch.stack([div_obj, div_bg]), vf, sigma, dsigma)
             ll_obj, ll_bg = ll_obj + dlls[:, 0], ll_bg + dlls[:, 1]
-        else:  # and / or / avg / avg_ode
+        else:  # and / avg / avg_ode
             v_obj, v_bg, v_unc = vels(x if cfg.cond_dedup else x.repeat(3, 1, 1, 1)).chunk(3)
-            if method == "or":
-                flat = lambda a: a.reshape(b, -1).contiguous()
-                flat_x, ll, kappa = sd_or_step(
-                    flat(v_obj), flat(v_bg), flat(v_unc), flat(x), flat(zs[i]),
-                    torch.stack([ll_obj, ll_bg], dim=-1), sigma, dsigma,
-                    temperature=cfg.temperature, logp=cfg.logp, guidance=g)
-                new_x = flat_x.reshape(shape)
-                ll_obj, ll_bg = ll[:, 0], ll[:, 1]
+            if method == "and":
+                dx_ind = 2.0 * dsigma * (v_unc + g * (v_bg - v_unc)) + noise_i
+                kappa = kp.kappa_and_sde(v_obj, v_bg, dx_ind, sigma, dsigma, g, n, cfg.lift)
             else:
-                if method == "and":
-                    dx_ind = 2.0 * dsigma * (v_unc + g * (v_bg - v_unc)) + noise_i
-                    kappa = kp.kappa_and_sde(v_obj, v_bg, dx_ind, sigma, dsigma, g, n, cfg.lift)
-                else:
-                    kappa = torch.full((b,), cfg.kappa_fixed, dtype=torch.float32, device=dev)
-                vf = v_unc + g * ((v_bg - v_unc) + kappa[:, None, None, None] * (v_obj - v_bg))
-                if method == "avg_ode":
-                    # noise-free step; no log-likelihood is tracked for it
-                    new_x = x + dsigma * vf
-                else:
-                    dx = 2.0 * dsigma * vf + noise_i
-                    new_x = x + dx
-                    dlls = ito.dlogq_sde_sigma_space(torch.stack([v_obj, v_bg]), dx, sigma, dsigma)
-                    ll_obj, ll_bg = ll_obj + dlls[:, 0], ll_bg + dlls[:, 1]
+                kappa = torch.full((b,), cfg.kappa_fixed, dtype=torch.float32, device=dev)
+            vf = v_unc + g * ((v_bg - v_unc) + kappa[:, None, None, None] * (v_obj - v_bg))
+            if method == "avg_ode":
+                # noise-free step; no log-likelihood is tracked for it
+                new_x = x + dsigma * vf
+            else:
+                dx = 2.0 * dsigma * vf + noise_i
+                new_x = x + dx
+                dlls = ito.dlogq_sde_sigma_space(torch.stack([v_obj, v_bg]), dx, sigma, dsigma)
+                ll_obj, ll_bg = ll_obj + dlls[:, 0], ll_bg + dlls[:, 1]
         x = new_x
         traces["kappa"].append(kappa)
         traces["ll_obj"].append(ll_obj)
@@ -244,14 +333,19 @@ def superdiff_sd_sample(
     return x, traces
 
 
-def make_sampler(mod: SDModules, method: str, cfg: SDPipelineConfig):
+def make_sampler(mod: SDModules, method: str, cfg: SDPipelineConfig, *,
+                 capture: Optional[bool] = None):
     """Sampler closure: (ctx_obj, ctx_bg, ctx_unc, *, generator, noise) ->
-    (latents, traces)."""
+    (latents, traces). ``capture`` as in :func:`superdiff_sd_sample`; the
+    closure keeps its captured ``or`` loop, so a later call of the same
+    shapes copies its inputs in and replays."""
     _check_method(method)
+    graphs = {}
 
     def run(ctx_obj, ctx_bg, ctx_unc, *, generator=None, noise=None):
         return superdiff_sd_sample(mod, method, ctx_obj, ctx_bg, ctx_unc, cfg,
-                                   generator=generator, noise=noise)
+                                   generator=generator, noise=noise, capture=capture,
+                                   graphs=graphs)
 
     return run
 
@@ -280,12 +374,15 @@ def generate(
     cfg: Optional[SDPipelineConfig] = None,
     decode: bool = True,
     noise: Optional[Tuple[torch.Tensor, ...]] = None,
+    capture: Optional[bool] = None,
 ) -> dict:
-    """End-to-end generation: {"latents", "traces"[, "images" uint8 NHWC]}."""
+    """End-to-end generation: {"latents", "traces"[, "images" uint8 NHWC]};
+    ``capture`` as in :func:`superdiff_sd_sample`."""
     cfg = cfg or SDPipelineConfig()
     ctxs = prepare_contexts(mod, method, obj, bg, batch_size)
     gen = torch.Generator(device=mod.device).manual_seed(seed)
-    latents, traces = make_sampler(mod, method, cfg)(*ctxs, generator=gen, noise=noise)
+    latents, traces = make_sampler(mod, method, cfg, capture=capture)(
+        *ctxs, generator=gen, noise=noise)
     out = {"latents": latents, "traces": traces}
     if decode:
         with torch.no_grad():

@@ -77,3 +77,18 @@ def test_launch_path_rejects_cpu_tensors():
     (s, x, eps, logq), scal = _inputs(2, 4, 64, seed=4)
     with pytest.raises(ValueError, match="CUDA"):
         fused_step._launch(t(s), t(x), t(eps), t(logq), *scal, 1e6)
+
+
+@pytest.mark.parametrize("ties", [False, True])
+def test_tensor_scalars_match_pallas_kernel_interpret(ties):
+    """da, beta, sigma, dt as 0-d tensor views of one step-table row (what
+    the sampler passes): the Pallas kernel's answer, and bit for bit the
+    answer of the same scalars as floats."""
+    arrays, scal = _inputs(2, 100, 3072, seed=3, ties=ties)
+    ref = jax_step.fused_sde_step_pallas(*map(jnp.asarray, arrays), *map(jnp.float32, scal),
+                                         interpret=True)
+    row = torch.tensor([0.5] + [float(v) for v in scal])[1:]
+    got = fused_sde_step(*map(t, arrays), *row.unbind())
+    _check(got, ref)
+    floats = fused_sde_step(*map(t, arrays), *map(float, scal))
+    assert torch.equal(got[0], floats[0]) and torch.equal(got[1], floats[1])

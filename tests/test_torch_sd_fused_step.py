@@ -69,3 +69,36 @@ def test_launch_path_rejects_cpu_tensors():
     rows, ll, sigma, dsigma = _inputs(4)
     with pytest.raises(ValueError, match="CUDA"):
         sd_fused_step._launch(*map(t, rows), t(ll), sigma, dsigma, 1.0, 0.0, 7.5)
+
+
+def test_tensor_and_float_scalars_agree():
+    """sigma / dsigma as 0-d tensors (views of a step table, what the
+    sampler passes) or as floats: the same result, bit for bit."""
+    rows, ll, sigma, dsigma = _inputs(5)
+    table = torch.tensor([[0.5, sigma, dsigma]])
+    a = sd_or_step(*map(t, rows), t(ll), *table[0, 1:].unbind(), **KW)
+    b = sd_or_step(*map(t, rows), t(ll), float(sigma), float(dsigma), **KW)
+    for x, y in zip(a, b):
+        assert torch.equal(x, y)
+
+
+def test_tensor_scalars_match_pallas_kernel_interpret():
+    rows, ll, sigma, dsigma = _inputs(6)
+    ref = jax_step.sd_or_step_pallas(*map(jnp.asarray, rows), jnp.asarray(ll),
+                                     jnp.float32(sigma), jnp.float32(dsigma),
+                                     interpret=True, **KW)
+    table = torch.tensor([sigma, dsigma])
+    got = sd_or_step(*map(t, rows), t(ll), table[0], table[1], **KW)
+    _check([a.numpy() for a in got], ref)
+
+
+def test_device_scalars_take_host_values_in_one_buffer():
+    """Host values (floats, CPU tensors) become 0-d fp32 views of one small
+    buffer on the target device, with their values."""
+    from superdiff_tpu_torch.ops import _build
+
+    vals = _build.device_scalars("test", torch.device("cpu"), 14.6146, torch.tensor(-0.25))
+    assert [v.shape for v in vals] == [(), ()]
+    assert all(v.dtype == torch.float32 for v in vals)
+    assert vals[0].item() == np.float32(14.6146) and vals[1].item() == -0.25
+    assert vals[0].untyped_storage().data_ptr() == vals[1].untyped_storage().data_ptr()
