@@ -40,16 +40,20 @@ Phases, in order; any failed check raises and the script exits non-zero:
 3. main path: SD-1.x UNet, CLIP text encoder and VAE decoder at their
    default (full) configs, random bf16 weights from ``--seed``, method
    ``or``, 512 px, latent batch 8 (context batch 24 with conditioning
-   dedup), ``--steps`` Euler steps through ``generate``, the step captured
-   in a CUDA graph and replayed (the default on the card). Every launch
-   count is zeroed just before and read just after: the captured run counts
-   its eager warm-up step and the capture (a replay counts nothing), the
-   eager twin (``capture=False``) every step, and each must show the steps
-   went through their three kernels and no other. The captured run must
-   equal the eager one bit for bit on the same noise (latents and the
-   ``kappa``, ``ll_obj``, ``ll_bg`` traces). Latents must be finite, kappa in
-   [0, 1], the images uint8. Per-step ms and peak memory of the captured
-   sampler and its eager twin are then timed in turns on ready contexts.
+   dedup), ``--steps`` Euler steps through ``generate``, captured (the
+   default on the card: step 0 eagerly, the step captured in a CUDA graph
+   and replayed for the others). Every launch count is zeroed just before
+   and read just after: the captured run's wrappers count step 0 and the
+   capture (a replay counts nothing; phase 5 counts the launches on the
+   device), the eager twin (``capture=False``) every step, and each must
+   show the steps went through their three kernels and no other. The
+   captured run must equal the eager one bit for bit on the same noise
+   (latents and the ``kappa``, ``ll_obj``, ``ll_bg`` traces). Latents must
+   be finite, kappa in [0, 1], the images uint8. Per-step ms and peak
+   memory of the captured sampler (its first call, then the kept graph)
+   and its eager twin are then timed in turns on ready contexts, and
+   50-step ``generate`` calls as users make them (a first captured call,
+   one replaying the kept graph, eager) in turns, held bit for bit.
    3b. the same at 768 px, 2 steps: per step 5 launches each of the
    online-softmax kernel (9216 tokens), the d-major kernel (2304 tokens)
    and ``_kernel_mh`` (576 tokens, head dim 160), 16 of ``geglu_ffn_block``,
@@ -83,18 +87,25 @@ Phases, in order; any failed check raises and the script exits non-zero:
    0-9, batch 100, ``--cifar-steps`` SDE/OR steps through ``make_generator``
    after two synced warmups, captured (the default on the card) and eager.
    Counters are zeroed just before and read just after: the captured run
-   must have launched ``fused_sde_step`` in its warm-up step and capture,
-   the eager twin in every step, and no SD kernel; x0 and logq of the two
+   must have called ``fused_sde_step`` in its step 0 and capture, the
+   eager twin in every step, and no SD kernel; x0 and logq of the two
    equal bit for bit. x0 finite, every logq row renormalised (max exactly
    0), uint8 images; ms per step, images/s and peak memory of both, timed in
    turns, are printed. Then a 4-step ODE/OR run
    (``torch.func.jvp`` through both bf16 nets, after a 1-step warmup) must
    be finite.
-5. profiles and CPU references, after every timed run (a torch.profiler
-   session slows the host's later launches for the rest of the process):
-   one ``geglu_ffn_block`` call must launch its three ``geglu_*`` kernels
-   and nothing else (no cast or elementwise kernel), one ``sd_or_step`` and
-   one ``fused_sde_step`` call one kernel each; one captured 512 px SD
+5. launches on the device, profiles and CPU references, after every timed
+   run (a torch.profiler session slows the host's later launches for the
+   rest of the process): one ``geglu_ffn_block`` call must launch its three
+   ``geglu_*`` kernels and nothing else (no cast or elementwise kernel), one
+   ``sd_or_step`` and one ``fused_sde_step`` call one kernel each. The
+   counted runs: ``generate`` at 512 px (``--steps``, decoded) and at 768 px
+   (2 steps), and a new CIFAR generator's 10-step call, each a first
+   captured call (step 0 eagerly, the capture, the rest replayed), each
+   recorded three times under torch.profiler with every count zeroed just
+   before and read just after (the wrappers: 2 per per-step call): the
+   kernels each wrapper's family ran on the device, the most any recorded
+   run saw, must be its calls per step times the steps. One captured 512 px SD
    sampler run, one captured 768 px and one 1024 px step and 10 captured
    CIFAR SDE/OR steps (graphs built before) are traced with torch.profiler
    (three recorded runs each, after warm-ups): device time by kernel family,
@@ -109,13 +120,13 @@ Phases, in order; any failed check raises and the script exits non-zero:
    full-width ``VAEEncoder`` forward at 256 px.
 
 The line before the last is the kernel table as JSON, one row per TPU kernel:
-``launches`` the wrapper's count over the run of the path the kernel serves
-(phase 3's captured run for ``sd_or_step``, ``flash_mha_eod`` and
-``geglu_ffn_block``, phase 3b's for ``_kernel`` and ``_kernel_mh``: the
-warm-up step and the capture; phase 3c for the ``_LONG_IMPL`` kernels,
-phase 3e for ``_kernel_mh_nat`` (``flash_nat``) and ``_kernel_cross_packed``
-(``xpk``), phase 4's captured run for ``fused_sde_step``; phase 5 reads the
-replayed launches from the profiler), ``max_abs_err`` the worst over the checked
+``launches`` the launches over the run of the path the kernel serves, in
+calls of its wrapper: for ``sd_or_step``, ``flash_mha_eod`` and
+``geglu_ffn_block`` (512 px), ``_kernel`` and ``_kernel_mh`` (768 px) and
+``fused_sde_step`` (CIFAR) the kernels phase 5's counted captured runs ran
+on the device (profiler); for the ``_LONG_IMPL`` kernels (phase 3c),
+``_kernel_mh_nat`` (``flash_nat``) and ``_kernel_cross_packed`` (``xpk``,
+phase 3e), eager runs, the wrappers' counts; ``max_abs_err`` the worst over the checked
 shapes, and ``ms`` / ``plain_ms`` / ``bound_ms`` / ``library_ms`` per step of
 that path (each of its shapes' time per launch times its launches per
 step). The card's name and power limit are on the line before it; the last
@@ -131,6 +142,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import re
 import subprocess
 import sys
 import time
@@ -297,6 +309,31 @@ def step_kernel_row(c, name, shape, err, scale, tol, run, plain, bound, floor, p
     c.add(shape, err, scale, tol, ms, plain_ms, bound, None, per_step, split)
 
 
+def step_clusters(name, d):
+    """CTAs a row (the cluster) of a step epilogue's launch at row length
+    ``d`` on 16-byte aligned rows: 8 for ``sd_or_step`` (``kCluster`` of
+    ``sd_fused_step.cu``); for ``fused_sde_step`` one 16-byte unit a thread
+    of 256, 1 to 4 CTAs (``cluster_size`` of ``fused_step.cu``)."""
+    if name == "sd_or_step":
+        return 8
+    units = d // 4 if d % 4 == 0 else d
+    return min(4, max(1, -(-units // 256)))
+
+
+def empty_launch(like, cluster, rows):
+    """An empty kernel on ``rows`` clusters of ``cluster`` CTAs of 256
+    threads (``scripts/csrc/launch_floor.cu``, built at first use) on the
+    stream of ``like``'s device: the floor of one launch, timed beside the
+    step epilogues; not a kernel of any path."""
+    import ctypes
+
+    from superdiff_tpu_torch.ops import _build
+
+    lib = _build.load("launch_floor", {"launch_floor": (ctypes.c_int, [
+        ctypes.c_int, ctypes.c_int, ctypes.c_void_p])}, csrc=ROOT / "scripts" / "csrc")
+    _build.check(lib.launch_floor(cluster, rows, _build.stream_ptr(like)), "launch_floor")
+
+
 def check_sd_or_step(dev):
     import torch
 
@@ -328,12 +365,12 @@ def check_sd_or_step(dev):
         tol = max(tol_x, tol_ll, 1e-6)
         if err_x > tol_x or err_ll > tol_ll or err_k > 1e-6:
             raise AssertionError(f"sd_or_step ({b},{d}): x {err_x} ll {err_ll} kappa {err_k}")
-        cluster = m.cluster_size()
+        cluster = step_clusters("sd_or_step", d)
         log(f"  sd_or_step ({b}, {d}): one launch on {b} clusters of {cluster} CTAs")
         step_kernel_row(c, "sd_or_step", (b, d), err, ref[0].abs().max().item(), tol,
                         lambda: m.sd_or_step(*args), lambda: m.sd_or_step_reference(*args),
                         6 * b * d * 4 / PEAK_BYTES * 1e3,
-                        lambda: m.empty_launch(rows[0], cluster, b), per_step)
+                        lambda: empty_launch(rows[0], cluster, b), per_step)
     return c
 
 
@@ -761,7 +798,6 @@ def check_fused_sde_step(dev):
     from superdiff_tpu_torch.core import ito
     from superdiff_tpu_torch.core.schedules import VPSchedule
     from superdiff_tpu_torch.ops import fused_step as m
-    from superdiff_tpu_torch.ops.sd_fused_step import empty_launch
 
     c = Check("fused_sde_step", "superdiff_tpu_torch/ops/csrc/fused_step.cu",
               "superdiff_tpu/ops/pallas/fused_step.py:36", "bytes")
@@ -791,7 +827,7 @@ def check_fused_sde_step(dev):
             if err_x > tol_x or err_lq > tol_lq or not torch.all(got[1].max(-1).values == 0):
                 raise AssertionError(f"fused_sde_step ({n},{b},{d}) ties={ties}: x {err_x} "
                                      f"(tol {tol_x}) logq {err_lq} (tol {tol_lq})")
-            cluster = m.cluster_size(d)
+            cluster = step_clusters("fused_sde_step", d)
             shape = (n, b, d, "ties" if ties else "no ties")
             log(f"  fused_sde_step {shape}: one launch on {b} clusters of {cluster} CTAs")
             step_kernel_row(c, "fused_sde_step", shape, max(err_x, err_lq),
@@ -828,12 +864,51 @@ def unet_reference_check(mod, dev):
 
 
 # kernel families of the profiles, and how many kernels one call of each
-# wrapper launches
+# wrapper launches. The wgmma core's bodies are kernels of their own:
+# attn_sm90_online (mode 2, _kernel), attn_sm90_two_pass and attn_sm90_short;
+# flash_mha_eod alone launches the d-major two-pass body (DMAJOR = true).
 ONLINE = "attention, online (_kernel)"
+EOD = "attention, d-major (flash_mha_eod)"
 ATTN_OTHER = "attention, wgmma core, other"
-KERNELS_PER_CALL = {"sd_or_step": ("sd_or_step", 1), "flash_mha_eod": (ATTN_OTHER, 1),
+KERNELS_PER_CALL = {"sd_or_step": ("sd_or_step", 1), "flash_mha_eod": (EOD, 1),
                     "geglu_ffn_block": ("geglu_ffn_block", 3), "_kernel": (ONLINE, 1),
                     "_kernel_mh": (ATTN_OTHER, 1), "fused_sde_step": ("fused_sde_step", 1)}
+FAMILIES = (("fused_sde_step", ("fused_sde_step",)),
+            (ONLINE, ("attn_sm90_online",)),
+            (EOD, (re.compile(r"attn_sm90_two_pass<\d+, true"),)),
+            (ATTN_OTHER, ("attn_sm90",)),
+            ("geglu_ffn_block", ("geglu_",)),
+            ("sd_or_step", ("or_step",)),
+            ("convolution", ("conv", "fprop", "implicit", "cudnn", "nchw", "nhwc")),
+            ("gemm", ("gemm", "cutlass", "cublas", "nvjet")),
+            ("softmax", ("softmax",)),
+            ("reduction", ("reduce",)),
+            ("elementwise / copy / cat", ("elementwise", "vectorized", "copy", "cat",
+                                           "unrolled", "index", "fill")))
+
+
+def family(key):
+    """The family of a kernel named ``key`` in a profile."""
+    key = key.lower()
+    for fam, marks in FAMILIES:
+        if any(m.search(key) if isinstance(m, re.Pattern) else m in key for m in marks):
+            return fam
+    return "other"
+
+
+def device_kernels(events):
+    """(family, kernel name, device ms, launches) of each kernel a profile's
+    ``key_averages()`` holds (not the ops or the step's range, which repeat
+    their kernels' time, nor runtime calls and buffers)."""
+    from torch.autograd import DeviceType
+
+    for e in events:
+        us = e.self_device_time_total
+        if (us <= 0 or e.device_type != DeviceType.CUDA
+                or e.key.startswith(("aten::", "cuda", "Activity Buffer", "Buffer Flush",
+                                     "ProfilerStep"))):
+            continue
+        yield family(e.key), e.key, us / 1e3, e.count
 
 
 def expect_profiled_launches(what, counts, steps, **calls):
@@ -861,6 +936,7 @@ def profile_step(sampler, ctxs, dev, steps):
     import torch
 
     gen = torch.Generator(device=dev).manual_seed(1)
+    float(sampler(*ctxs, generator=gen)[0].sum())  # its graph, if another run replaced it
     fams, wall, counts = profile_by_family(lambda: sampler(*ctxs, generator=gen), OUT /
                                            "chip_smoke_profile.txt")
     total = sum(fams.values())
@@ -919,6 +995,51 @@ def score_unet_reference_check(model, cfg, dev):
         raise AssertionError(f"ScoreUNet card-vs-CPU relative error {rel}")
 
 
+def counted_runs(what, run, steps, cycles=3, **calls):
+    """Launches on the device, by kernel wrapper, of a path's captured run
+    as a user's first call makes it (``run()`` starts from no kept loop:
+    step 0 eagerly, the capture, which records and runs nothing, and the
+    other ``steps - 1`` steps replayed). ``run()`` is recorded ``cycles``
+    times under torch.profiler, each after an unrecorded run while the
+    tracer warms up, with every count set to 0 just before and read just
+    after: the wrappers must count 2 per per-step call (step 0 and the
+    capture) and no other kernel. The launches are the kernels of each
+    wrapper's family in the trace, the most any recorded run saw (the
+    tracer loses a record now and then), over its kernels per call; they
+    must be ``calls[name]`` a step over ``steps`` steps. Returns {wrapper:
+    launches}."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    traced = []
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1, repeat=cycles),
+                 on_trace_ready=lambda p: traced.append(p.key_averages())) as prof:
+        for _ in range(cycles):
+            run()
+            torch.cuda.synchronize()
+            prof.step()
+            zero_counts()
+            run()
+            torch.cuda.synchronize()
+            expect_counts(f"{what} (wrapper calls: step 0 and the capture)", read_counts(),
+                          **{k: 2 * v for k, v in calls.items()})
+            prof.step()
+    most = {}
+    for events in traced:
+        seen = {}
+        for fam, _, _, n in device_kernels(events):
+            seen[fam] = seen.get(fam, 0) + n
+        most = {fam: max(most.get(fam, 0), seen.get(fam, 0)) for fam in {*most, *seen}}
+    got = {name: most.get(KERNELS_PER_CALL[name][0], 0) // KERNELS_PER_CALL[name][1]
+           for name in calls}
+    log(f"  {what}: launches on the device (profiler, the most of {cycles} runs): " +
+        ", ".join(f"{k} {v}" for k, v in got.items()) + f" over {steps} steps")
+    if got != {name: n * steps for name, n in calls.items()}:
+        raise AssertionError(f"{what}: launches {got}, want {calls} a step over {steps}")
+    return got
+
+
 def profile_by_family(run, path, cycles=3):
     """Device time of ``run()`` by kernel family (torch.profiler); the table
     goes to ``path``. ``run()`` is recorded ``cycles`` times, each after an
@@ -928,7 +1049,6 @@ def profile_by_family(run, path, cycles=3):
     record now and then (one ``fused_sde_step`` record of ten, in one of
     six repeated profiles), so one run alone can miscount."""
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, schedule
 
     traced, walls = [], []
@@ -945,33 +1065,12 @@ def profile_by_family(run, path, cycles=3):
             walls.append((time.perf_counter() - t0) * 1e3)
             prof.step()
     path.write_text(traced[0].table(sort_by="self_device_time_total", row_limit=60))
-    # the wgmma core's bodies are kernels of their own: attn_sm90_online
-    # (mode 2, _kernel), attn_sm90_two_pass and attn_sm90_short (the others)
-    families = (("fused_sde_step", ("fused_sde_step",)),
-                (ONLINE, ("attn_sm90_online",)),
-                (ATTN_OTHER, ("attn_sm90",)),
-                ("geglu_ffn_block", ("geglu_",)),
-                ("sd_or_step", ("or_step",)),
-                ("convolution", ("conv", "fprop", "implicit", "cudnn", "nchw", "nhwc")),
-                ("gemm", ("gemm", "cutlass", "cublas", "nvjet")),
-                ("softmax", ("softmax",)),
-                ("reduction", ("reduce",)),
-                ("elementwise / copy / cat", ("elementwise", "vectorized", "copy", "cat",
-                                               "unrolled", "index", "fill")))
     runs = []
     for events in traced:
         totals, counts = {}, {}
-        for e in events:
-            us = e.self_device_time_total
-            if (us <= 0 or e.device_type != DeviceType.CUDA
-                    or e.key.startswith(("aten::", "cuda", "Activity Buffer", "Buffer Flush",
-                                         "ProfilerStep"))):
-                continue  # ops and the step's range (which repeat their kernels' time),
-                # runtime calls, buffers
-            key = e.key.lower()
-            fam = next((f for f, words in families if any(w in key for w in words)), "other")
-            totals[fam] = totals.get(fam, 0.0) + us / 1e3
-            counts[fam] = counts.get(fam, 0) + e.count
+        for fam, _, ms, n in device_kernels(events):
+            totals[fam] = totals.get(fam, 0.0) + ms
+            counts[fam] = counts.get(fam, 0) + n
         runs.append((totals, counts))
     most = {fam: max(c.get(fam, 0) for _, c in runs) for _, c in runs for fam in c}
     return runs[0][0], walls[0], most
@@ -983,8 +1082,7 @@ def cifar_phase(dev, args):
     non-zero weights, batch 100, labels tiled 0-9, bf16 compute: the SDE /
     OR trajectory captured (the counted run) and eager, the captured run
     held bit for bit to the eager one, both timed in turns; then the ODE.
-    Returns the fused_sde_step launches of the counted run, the models, the
-    config and the labels."""
+    Returns the models, the config and the labels."""
     import torch
 
     from superdiff_tpu_torch.ops.fused_step import fused_sde_step
@@ -1005,8 +1103,9 @@ def cifar_phase(dev, args):
     for _ in range(2):  # two synced warmups
         float(warm(torch.Generator(device=dev).manual_seed(0))[0].sum())
     steps = args.cifar_steps
-    generate = cifar.make_generator(models, cfg, mode="sde", operator="or", n_steps=steps,
-                                    labels=labels, capture=True)
+    captured = lambda: cifar.make_generator(models, cfg, mode="sde", operator="or",
+                                            n_steps=steps, labels=labels, capture=True)
+    generate = captured()
     eager = cifar.make_generator(models, cfg, mode="sde", operator="or", n_steps=steps,
                                  labels=labels, capture=False)
     gen = lambda: torch.Generator(device=dev).manual_seed(args.seed)
@@ -1019,10 +1118,10 @@ def cifar_phase(dev, args):
     wall = time.perf_counter() - t0
     launches = fused_sde_step.launches
     peak = (torch.cuda.max_memory_allocated() - base) / 2**30
-    # captured: the eager warm-up step and the capture of one step
+    # captured: the eager step 0 and the capture of one step
     log(f"  generate (sde, or, {steps} steps, batch {b}, captured; the first call, with its "
-        f"warm-up step and capture): {wall:.3f} s wall, peak memory {peak:.3f} GiB; "
-        f"fused_sde_step launches {launches} (want 2: the warm-up step and the capture)")
+        f"eager step 0 and the capture): {wall:.3f} s wall, peak memory {peak:.3f} GiB; "
+        f"fused_sde_step wrapper calls {launches} (want 2: step 0 and the capture)")
     if launches != 2:
         raise AssertionError(f"fused_sde_step launches {launches} != 2")
     fused_sde_step.launches = 0
@@ -1038,12 +1137,15 @@ def cifar_phase(dev, args):
                              f"{steps}")
     if not (torch.equal(x0, ex0) and torch.equal(logq, elogq)):
         raise AssertionError("CIFAR: the captured run differs from the eager one")
-    t = captured_and_eager(lambda: generate(gen()), lambda: eager(gen()), steps)
+    kept = [generate]  # the generator keeps its captured loop: a new one drops it
+    t = captured_and_eager(lambda: kept[0](gen()), lambda: eager(gen()), steps,
+                           lambda: kept.__setitem__(0, captured()))
     log(f"  sampler (sde, or, {steps} steps, batch {b}): captured {t['captured']:.3f} ms per "
         f"step ({b / (t['captured'] * steps / 1e3):.3f} images/s), eager {t['eager']:.3f} ms "
         f"per step ({b / (t['eager'] * steps / 1e3):.3f} images/s) (medians in turns: "
         f"captured {[round(v, 3) for v in t['all']['captured']]}, eager "
-        f"{[round(v, 3) for v in t['all']['eager']]}); peak memory captured "
+        f"{[round(v, 3) for v in t['all']['eager']]}; the first call, with its eager step 0 "
+        f"and the capture, {t['first']:.3f} ms per step); peak memory captured "
         f"{t['peak_captured'] - base / 2**30:.3f} GiB, eager {t['peak_eager'] - base / 2**30:.3f}"
         f" GiB above the earlier phases' {base / 2**30:.3f}")
     del eager, ex0, elogq
@@ -1069,7 +1171,21 @@ def cifar_phase(dev, args):
         f"{xo.abs().max().item():.4f}, logq min {lo.min().item():.6g}")
     if not (torch.isfinite(xo).all() and torch.isfinite(lo).all()):
         raise AssertionError("ODE sampler output not finite")
-    return launches, models, cfg, labels
+    return models, cfg, labels
+
+
+def cifar_counted_run(models, cfg, labels, dev, steps=10):
+    """The CIFAR SDE/OR path's launches on the device: a new generator's
+    first call of ``steps`` steps (step 0 eagerly, the capture, the other
+    steps replayed), read from the profiler (:func:`counted_runs`)."""
+    import torch
+
+    from superdiff_tpu_torch.pipelines import cifar
+
+    run = lambda: cifar.make_generator(models, cfg, n_steps=steps, labels=labels)(
+        torch.Generator(device=dev).manual_seed(3))
+    return counted_runs(f"CIFAR sde/or, generate, {steps} steps", run, steps,
+                        fused_sde_step=1)
 
 
 def cifar_profile(models, cfg, labels, dev):
@@ -1082,7 +1198,7 @@ def cifar_profile(models, cfg, labels, dev):
 
     short = cifar.make_generator(models, cfg, n_steps=10, labels=labels, capture=True)
     gen = lambda: torch.Generator(device=dev).manual_seed(2)
-    float(short(gen())[0].sum())  # its warm-up step and capture
+    float(short(gen())[0].sum())  # its first call: step 0 and the capture
     fams, wall, counts = profile_by_family(
         lambda: short(gen()), OUT / "chip_smoke_cifar_profile.txt")
     total = sum(fams.values())
@@ -1156,11 +1272,12 @@ def eager_generate(sd, *args, **kwargs):
 
 def counted_generate(sd, mod, method, cfg, batch, seed, decode=False, capture=False):
     """One ``generate`` with every count set to 0 just before and read just
-    after; returns (output, counts, wall seconds). Captured, the counts are
-    those of the eager warm-up step and of the capture (a replay counts
-    nothing)."""
+    after; returns (output, counts, wall seconds). Captured, the run starts
+    from no kept loop, and its counts are those of the eager step 0 and of
+    the capture (a replay counts nothing)."""
     import torch
 
+    mod.or_loop = None
     zero_counts()
     t0 = time.perf_counter()
     out = sd.generate(mod, method, *PROMPTS, seed=seed, batch_size=batch, cfg=cfg,
@@ -1184,12 +1301,13 @@ def same_run(what, got, ref, keys=("kappa", "ll_obj", "ll_bg")):
         raise AssertionError(f"{what}: the captured run differs from the eager one: {diff}")
 
 
-def captured_and_eager(run_captured, run_eager, steps, rounds=2):
+def captured_and_eager(run_captured, run_eager, steps, drop, rounds=2):
     """Per-step ms of a captured sampler and its eager twin, timed in turns
     (captured, eager, eager, captured per round; host clock around synced
-    runs), after the captured sampler's first call (its warm-up step and
-    capture, timed apart). Returns {"first", "captured", "eager": median ms
-    per step, "peak_captured", "peak_eager": GiB}."""
+    runs), after the captured sampler's first call (``drop()`` forgets its
+    kept loop first: step 0 eagerly, the capture and the other steps
+    replayed, timed apart). Returns {"first", "captured", "eager": median
+    ms per step, "peak_captured", "peak_eager": GiB}."""
     import statistics
 
     import torch
@@ -1203,6 +1321,7 @@ def captured_and_eager(run_captured, run_eager, steps, rounds=2):
         return ((time.perf_counter() - t0) * 1e3 / steps,
                 torch.cuda.max_memory_allocated() / 2**30)
 
+    drop()
     first, peak_c = timed(run_captured)
     times = {"captured": [], "eager": []}
     peaks = {"captured": peak_c, "eager": 0.0}
@@ -1226,13 +1345,46 @@ def sd_captured_and_eager(sd, mod, cfg, batch, seed, dev, what):
     eager = sd.make_sampler(mod, "or", cfg, capture=False)
     gen = lambda: torch.Generator(device=dev).manual_seed(seed)
     t = captured_and_eager(lambda: captured(*ctxs, generator=gen()),
-                           lambda: eager(*ctxs, generator=gen()), cfg.num_inference_steps)
+                           lambda: eager(*ctxs, generator=gen()), cfg.num_inference_steps,
+                           lambda: setattr(mod, "or_loop", None))
     log(f"  {what}: captured {t['captured']:.3f} ms per step, eager {t['eager']:.3f} "
         f"(medians in turns: captured {[round(v, 3) for v in t['all']['captured']]}, eager "
         f"{[round(v, 3) for v in t['all']['eager']]}; the captured sampler's first call, "
-        f"with its warm-up step and capture, {t['first']:.3f} ms per step); peak memory "
+        f"with its eager step 0 and the capture, {t['first']:.3f} ms per step); peak memory "
         f"captured {t['peak_captured']:.2f} GiB, eager {t['peak_eager']:.2f} GiB")
     return captured, ctxs
+
+
+def generate_in_turns(sd, mod, seed, steps):
+    """``generate`` of ``steps`` steps at 512 px, latent batch 8, no decode,
+    as a user calls it: captured as a first call (no kept loop: step 0
+    eagerly, the capture, the other steps replayed), captured again (the
+    kept loop: every step replayed) and eager, in turns (first, eager, kept,
+    kept, eager, first; host clock around synced calls). Prints each one's
+    seconds and ms per step; the three give the same latents bit for
+    bit."""
+    import statistics
+
+    import torch
+
+    cfg = sd.SDPipelineConfig(num_inference_steps=steps)
+    times, outs = {"first": [], "kept": [], "eager": []}, {}
+    for which in ("first", "eager", "kept", "kept", "eager", "first"):
+        if which == "first":
+            mod.or_loop = None
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = sd.generate(mod, "or", *PROMPTS, seed=seed, batch_size=8, cfg=cfg, decode=False,
+                          capture=False if which == "eager" else None)
+        torch.cuda.synchronize()
+        times[which].append(time.perf_counter() - t0)
+        outs[which] = out["latents"]
+    med = {k: statistics.median(v) for k, v in times.items()}
+    log(f"  generate, {steps} steps, in turns: " + "; ".join(
+        f"{k} {med[k]:.4f} s ({med[k] * 1e3 / steps:.3f} ms per step; "
+        f"{', '.join(f'{v:.4f}' for v in times[k])} s)" for k in times))
+    if not (torch.equal(outs["first"], outs["eager"]) and torch.equal(outs["kept"], outs["eager"])):
+        raise AssertionError(f"generate, {steps} steps: captured latents differ from eager")
 
 
 def timed_sampler(sd, mod, method, cfg, batch, seed, dev):
@@ -1266,7 +1418,7 @@ def sd_768_phase(sd, mod, args, dev):
     d-major kernel, the 576-token rows (head dim 160) ``_kernel_mh``. Run
     captured and eager: the counts of each run, the captured run held bit
     for bit to the eager one, both timed in turns. Then one step at 1024 px
-    the same way. Returns the captured 768 px run's launch counts."""
+    the same way."""
     import torch
 
     one = sd.SDPipelineConfig(num_inference_steps=1, height=768, width=768)
@@ -1276,8 +1428,8 @@ def sd_768_phase(sd, mod, args, dev):
                              decode=False)["latents"].sum())
     out, counts, wall = counted_generate(sd, mod, "or", cfg, 8, args.seed, decode=True,
                                          capture=True)
-    # captured: the eager warm-up step and the capture of one step
-    expect_counts("768 px or, captured (warm-up step + capture)", counts, sd_or_step=2,
+    # captured: the eager step 0 and the capture of one step
+    expect_counts("768 px or, captured (step 0 + capture)", counts, sd_or_step=2,
                   flash_mha_eod=10, geglu_ffn_block=32, _kernel=10, _kernel_mh=10)
     eager, eager_counts, _ = counted_generate(sd, mod, "or", cfg, 8, args.seed)
     expect_counts("768 px or, eager, 2 steps", eager_counts, sd_or_step=2, flash_mha_eod=10,
@@ -1304,7 +1456,7 @@ def sd_768_phase(sd, mod, args, dev):
     float(eager_generate(sd, mod, "or", *PROMPTS, seed=args.seed, batch_size=8, cfg=big,
                          decode=False)["latents"].sum())
     out, big_counts, _ = counted_generate(sd, mod, "or", big, 8, args.seed, capture=True)
-    expect_counts("1024 px or, captured (warm-up step + capture)", big_counts, sd_or_step=2,
+    expect_counts("1024 px or, captured (step 0 + capture)", big_counts, sd_or_step=2,
                   flash_mha_eod=20, geglu_ffn_block=32, _kernel=10)
     eager, eager_counts, _ = counted_generate(sd, mod, "or", big, 8, args.seed)
     expect_counts("1024 px or, eager, 1 step", eager_counts, sd_or_step=1, flash_mha_eod=10,
@@ -1317,7 +1469,6 @@ def sd_768_phase(sd, mod, args, dev):
     torch.cuda.empty_cache()
     sd_captured_and_eager(sd, mod, big, 8, args.seed, dev, "1024 px sampler (1 step)")
     torch.cuda.empty_cache()
-    return counts
 
 
 def sd_attn_impl_phase(sd, mod, args, dev):
@@ -1643,7 +1794,7 @@ def sd_step_profile(sd, mod, args, dev, hw, **calls):
     ctxs = sd.prepare_contexts(mod, "or", *PROMPTS, 8)
     sampler = sd.make_sampler(mod, "or", cfg, capture=True)
     gen = lambda: torch.Generator(device=dev).manual_seed(args.seed)
-    float(sampler(*ctxs, generator=gen())[0].sum())  # its warm-up step and capture
+    float(sampler(*ctxs, generator=gen())[0].sum())  # its first call: step 0, the capture
     fams, wall, counts = profile_by_family(
         lambda: sampler(*ctxs, generator=gen()),
         OUT / f"chip_smoke_sd{hw}_profile.txt")
@@ -1713,7 +1864,6 @@ def main(argv=None) -> int:
     checks.update(check_bhld(dev))
     checks.update(check_packed(dev))
     torch.cuda.empty_cache()
-    launches = {}
 
     log(f"phase 3: main path (SD-1.x, or, 512 px, latent batch 8, {args.steps} steps)")
     t0 = time.perf_counter()
@@ -1726,15 +1876,14 @@ def main(argv=None) -> int:
         w = eager_generate(sd, mod, "or", *PROMPTS, seed=args.seed, batch_size=8, cfg=one,
                            decode=False)
         float(w["latents"].sum())
-    # the main path: captured, the default on the card; its counts are the
-    # eager warm-up step's and the capture's (the replays count nothing;
-    # phase 5 reads the replayed launches from the profiler)
+    # the main path: captured, the default on the card; the wrappers count
+    # the eager step 0 and the capture (a replay counts nothing; phase 5
+    # reads the launches on the device from the profiler)
     out, counts, wall = counted_generate(sd, mod, "or", cfg, 8, args.seed, decode=True,
-                                         capture=True)
+                                         capture=None)
     log(f"  generate (captured): {wall:.3f} s wall")
-    expect_counts(f"512 px or, {args.steps} steps captured (warm-up step + capture)", counts,
+    expect_counts(f"512 px or, {args.steps} steps captured (step 0 + capture)", counts,
                   sd_or_step=2, flash_mha_eod=20, geglu_ffn_block=32)
-    launches.update({k: counts[k] for k in ("sd_or_step", "flash_mha_eod", "geglu_ffn_block")})
     eager, eager_counts, _ = counted_generate(sd, mod, "or", cfg, 8, args.seed)
     expect_counts(f"512 px or, {args.steps} steps eager", eager_counts, sd_or_step=args.steps,
                   flash_mha_eod=10 * args.steps, geglu_ffn_block=16 * args.steps)
@@ -1754,13 +1903,14 @@ def main(argv=None) -> int:
     sampler, ctxs = sd_captured_and_eager(sd, mod, cfg, 8, args.seed, dev,
                                           f"sampler ({args.steps} steps)")
     torch.cuda.empty_cache()
+    generate_in_turns(sd, mod, args.seed, 50)
+    torch.cuda.empty_cache()
 
     log("phase 3b: SD-1.x, or, 768 px, latent batch 8, 2 steps")
-    counts = sd_768_phase(sd, mod, args, dev)
-    launches.update({k: counts[k] for k in ("_kernel", "_kernel_mh")})
+    sd_768_phase(sd, mod, args, dev)
 
     log("phase 3c: SD-1.x, or, 512 px under attn_impl flash_eo / flash and every _LONG_IMPL")
-    launches.update(sd_attn_impl_phase(sd, mod, args, dev))
+    launches = sd_attn_impl_phase(sd, mod, args, dev)
 
     log("phase 3d: the other methods at 512 px")
     sd_methods_phase(sd, mod, args, dev)
@@ -1772,14 +1922,27 @@ def main(argv=None) -> int:
     log(f"phase 4: CIFAR joint sampler (vpsdeA, 2 models, batch 100, sde/or, "
         f"{args.cifar_steps} steps)")
     zero_counts()
-    launches["fused_sde_step"], models, cifar_cfg, labels = cifar_phase(dev, args)
+    models, cifar_cfg, labels = cifar_phase(dev, args)
     others = {k: v for k, v in read_counts().items() if v and k != "fused_sde_step"}
     if others:
         raise AssertionError(f"the CIFAR path launched SD kernels: {others}")
 
-    log("phase 5: profiles and CPU references")
+    log("phase 5: launches on the device, profiles and CPU references")
     geglu_launches_only(dev)
     step_kernels_launch_once(dev)
+    # the main path's launches: generate as a user's first call runs it
+    main_run = lambda: (setattr(mod, "or_loop", None), sd.generate(
+        mod, "or", *PROMPTS, seed=args.seed, batch_size=8, cfg=cfg))
+    launches.update(counted_runs(f"512 px or, generate, {args.steps} steps", main_run,
+                                 args.steps, sd_or_step=1, flash_mha_eod=10,
+                                 geglu_ffn_block=16))
+    cfg768 = sd.SDPipelineConfig(num_inference_steps=2, height=768, width=768)
+    run768 = lambda: (setattr(mod, "or_loop", None), sd.generate(
+        mod, "or", *PROMPTS, seed=args.seed, batch_size=8, cfg=cfg768, decode=False))
+    got = counted_runs("768 px or, generate, 2 steps", run768, 2, sd_or_step=1,
+                       flash_mha_eod=5, _kernel_mh=5, geglu_ffn_block=16, _kernel=5)
+    launches.update({k: got[k] for k in ("_kernel", "_kernel_mh")})
+    torch.cuda.empty_cache()
     profile_step(sampler, ctxs, dev, args.steps)
     sd_step_profile(sd, mod, args, dev, 768, sd_or_step=1, flash_mha_eod=5, _kernel_mh=5,
                     geglu_ffn_block=16, _kernel=5)
@@ -1790,6 +1953,7 @@ def main(argv=None) -> int:
     vae_encoder_reference_check(dev, args.seed)
     del mod, sampler, ctxs
     torch.cuda.empty_cache()
+    launches.update(cifar_counted_run(models, cifar_cfg, labels, dev))
     cifar_profile(models, cifar_cfg, labels, dev)
     score_unet_reference_check(models[0], cifar_cfg, dev)
 

@@ -21,8 +21,8 @@ script goes on and then exits 1.
 Each shape is timed in turns, parent, change, change, parent, per round, by
 device time alone (``chip_smoke.graph_ms``: 20 calls captured in a CUDA
 graph and replayed), beside the device time of an empty kernel in the same
-kind of graph (``sd_fused_step.empty_launch`` of this checkout on the
-change's grid of clusters: the floor of one launch) and the bytes' bound.
+kind of graph (``chip_smoke.empty_launch`` on the change's grid of
+clusters: the floor of one launch) and the bytes' bound.
 One line per shape gives every time and the medians; the last line is a
 JSON object with the medians, the card's name and power limit. Needs one
 CUDA card.
@@ -58,10 +58,10 @@ def load_package(root: Path, alias: str):
     return pkg
 
 
-def reads_device_scalars(wrapper_module) -> bool:
-    """Whether this checkout's kernel reads its step scalars from device
-    memory (the C interface takes pointers for them)."""
-    return hasattr(wrapper_module, "cluster_size")
+def reads_device_scalars(pkg) -> bool:
+    """Whether this checkout's step kernels read their step scalars from
+    device memory (its ``_build`` puts host values on the card for them)."""
+    return hasattr(importlib.import_module(f"{pkg.__name__}.ops._build"), "device_scalars")
 
 
 def scalars(values, on_device: bool, dev):
@@ -84,7 +84,7 @@ def or_cases(mods, dev):
         runs = {}
         for tag, pkg in mods.items():
             m = importlib.import_module(f"{pkg.__name__}.ops.sd_fused_step")
-            sc = scalars((SIGMA, DSIGMA), reads_device_scalars(m), dev)
+            sc = scalars((SIGMA, DSIGMA), reads_device_scalars(pkg), dev)
             runs[tag] = lambda m=m, sc=sc: m.sd_or_step(*rows, ll, *sc)
 
         def hold(outs):
@@ -118,7 +118,7 @@ def sde_cases(mods, dev):
             runs = {}
             for tag, pkg in mods.items():
                 m = importlib.import_module(f"{pkg.__name__}.ops.fused_step")
-                sc = scalars(values, reads_device_scalars(m), dev)
+                sc = scalars(values, reads_device_scalars(pkg), dev)
                 runs[tag] = lambda m=m, sc=sc: m.fused_sde_step(s, x, eps, logq, *sc)
 
             def hold(outs):
@@ -145,7 +145,7 @@ def main(argv=None) -> int:
         print("torch_step_kernels_ab: no CUDA device", file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT))
-    from chip_smoke import PEAK_BYTES, card_line, graph_ms
+    from chip_smoke import PEAK_BYTES, card_line, empty_launch, graph_ms, step_clusters
 
     mods = {"parent": load_package(args.parent.resolve(), "parent_superdiff_tpu_torch"),
             "change": load_package(ROOT, "change_superdiff_tpu_torch")}
@@ -155,8 +155,6 @@ def main(argv=None) -> int:
         t.start()
     for t in builds:
         t.join()
-    change_or = importlib.import_module(f"{mods['change'].__name__}.ops.sd_fused_step")
-    change_sde = importlib.import_module(f"{mods['change'].__name__}.ops.fused_step")
 
     card = card_line()
     print(f"{torch.cuda.get_device_name(0)}; {card}", flush=True)
@@ -173,10 +171,9 @@ def main(argv=None) -> int:
         verdict = "held" if ok else "FAILS its hold"
         if not ok:
             failed.append(key)
-        cluster = (change_or.cluster_size() if name == "sd_or_step"
-                   else change_sde.cluster_size(shape[2]))
+        cluster = step_clusters(name, shape[-1] if name == "sd_or_step" else shape[2])
         like = outs["change"][0]
-        floor = graph_ms(lambda: change_or.empty_launch(like, cluster, rows))
+        floor = graph_ms(lambda: empty_launch(like, cluster, rows))
         del outs
         times = {tag: [] for tag in ("parent", "change")}
         for _ in range(args.rounds):

@@ -22,9 +22,11 @@ SDE + OR runs on static buffers (``_SdeOrLoop``): the scalars go to the
 card once as a per-step table, the unit normals are drawn before the loop
 (the same draws, in the same order, as one per step), and each step reads
 both through a device step index. On the card the step is captured in a
-CUDA graph once and replayed (``capture=None`` or ``True``), the port's
-counterpart of the JAX ``lax.scan``; ``capture=False`` calls the same step
-eagerly, as the CPU does. The other modes run eagerly, step by step.
+CUDA graph after an eager step 0 and replayed (``capture=None`` or
+``True``), the port's counterpart of the JAX ``lax.scan``; a
+``SuperposeSampler`` keeps the captured loop for its next run of the same
+shapes. ``capture=False`` calls the same step eagerly, as the CPU does. The
+other modes run eagerly, step by step.
 """
 
 from __future__ import annotations
@@ -129,6 +131,12 @@ class _SdeOrLoop(StepLoop):
         self.logq = torch.zeros((x_init.shape[0], n_models), dtype=torch.float32, device=dev)
         self.idx = torch.zeros((1,), dtype=torch.long, device=dev)
 
+    def fits(self, x_init) -> bool:
+        """Whether a run from ``x_init`` can replay this loop: the same
+        shape, dtype and device."""
+        return (x_init.shape == self.x_init.shape and x_init.dtype == self.x_init.dtype
+                and x_init.device == self.x_init.device)
+
     def load(self, x_init, zs):
         self.x_init.copy_(x_init)
         self.zs.copy_(zs)
@@ -153,7 +161,75 @@ class _SdeOrLoop(StepLoop):
         return self.x.clone(), self.logq.clone()
 
 
-@torch.no_grad()
+class SuperposeSampler:
+    """The joint reverse trajectory of one stacked oracle under one config:
+    :func:`superpose` runs one, ``pipelines.cifar.make_generator`` keeps
+    one. Under SDE + OR on the card its captured step loop (static buffers
+    and CUDA graph) stays here until a run of other shapes replaces it, so
+    a later run of the same shapes replays every step."""
+
+    def __init__(self, score_fn: ScoreFn, schedule, cfg: SuperposeConfig, n_models: int):
+        self.score_fn, self.schedule, self.cfg, self.n_models = score_fn, schedule, cfg, n_models
+        self.loop: Optional[_SdeOrLoop] = None
+
+    @torch.no_grad()
+    def __call__(self, x_init: torch.Tensor, *, noise: Optional[Sequence[torch.Tensor]] = None,
+                 generator: Optional[torch.Generator] = None,
+                 capture: Optional[bool] = None) -> Tuple[torch.Tensor, torch.Tensor, int]:
+        """One trajectory from ``x_init``; the arguments and the result as
+        in :func:`superpose`."""
+        cfg, dev = self.cfg, x_init.device
+        nfe = cfg.n_steps * (2 if cfg.mode == "ode" else 1)
+        if (cfg.mode, cfg.operator) == ("sde", "or"):
+            x, logq = self._sde_or(x_init, noise, generator,
+                                   want_capture(capture, dev, "superpose"))
+            return x, logq, nfe
+        steps = {("sde", "avg"): avg_sde_step, ("ode", "or"): ode_step, ("ode", "avg"): ode_step}
+        if (cfg.mode, cfg.operator) not in steps:
+            raise ValueError(f"unknown mode / operator: {cfg.mode} / {cfg.operator}")
+        if capture:
+            raise ValueError(f"capture=True: only sde / or runs as a captured step, not "
+                             f"{cfg.mode} / {cfg.operator}")
+        x = x_init
+        logq = torch.zeros((x.shape[0], self.n_models), dtype=torch.float32, device=dev)
+        # float32 host scalars, in the JAX scan's order of operations
+        dt = torch.tensor(cfg.dt, dtype=torch.float32)
+        for i in range(cfg.n_steps):
+            t = cfg.t_1 - torch.tensor(i, dtype=torch.float32) * dt
+            if noise is not None:
+                z = torch.as_tensor(noise[i], dtype=x.dtype, device=dev)
+            elif cfg.mode == "ode":
+                z = ito.rademacher(x.shape, generator, x.dtype, dev)
+            else:
+                z = torch.randn(x.shape, generator=generator, dtype=x.dtype, device=dev)
+            x, logq = steps[cfg.mode, cfg.operator](z, x, logq, t, dt, self.score_fn,
+                                                    self.schedule, cfg)
+        return x, logq, nfe
+
+    def _sde_or(self, x_init, noise, generator, capture: bool):
+        cfg, dev = self.cfg, x_init.device
+        if noise is not None:
+            zs = torch.stack([torch.as_tensor(noise[i], dtype=x_init.dtype, device=dev)
+                              for i in range(cfg.n_steps)])
+        else:
+            # one draw a step, in order, as the step-by-step loop draws them
+            zs = torch.empty((cfg.n_steps,) + tuple(x_init.shape), dtype=x_init.dtype,
+                             device=dev)
+            for i in range(cfg.n_steps):
+                zs[i] = torch.randn(x_init.shape, generator=generator, dtype=x_init.dtype,
+                                    device=dev)
+        if capture and self.loop is not None and self.loop.fits(x_init):
+            self.loop.load(x_init, zs)
+            return self.loop.run(capture)
+        if capture:
+            self.loop = None  # its graph's memory goes before the next is captured
+        loop = _SdeOrLoop(self.score_fn, cfg, sde_or_step_table(self.schedule, cfg).to(dev),
+                          x_init, zs, self.n_models)
+        if capture:
+            self.loop = loop
+        return loop.run(capture)
+
+
 def superpose(
     x_init: torch.Tensor,
     score_fn: ScoreFn,
@@ -164,7 +240,6 @@ def superpose(
     noise: Optional[Sequence[torch.Tensor]] = None,
     generator: Optional[torch.Generator] = None,
     capture: Optional[bool] = None,
-    graphs: Optional[dict] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, int]:
     """Run the joint reverse trajectory.
 
@@ -179,58 +254,11 @@ def superpose(
         (SDE) or a Rademacher probe (ODE). Otherwise drawn from ``generator``.
       capture: SDE + OR only: replay one step captured in a CUDA graph
         (``None``: on the card, not on the CPU; ``True`` on CPU tensors or
-        another mode raises); ``False`` runs the same step eagerly.
-      graphs: a dict that keeps the captured loop for the next call with the
-        same ``score_fn`` and shapes (the caller's; ``make_generator`` passes
-        its own).
+        another mode raises); ``False`` runs the same step eagerly. A
+        :class:`SuperposeSampler` keeps the captured loop between runs.
 
     Returns:
       (x_0, logq (B, N) fp32, nfe).
     """
-    dev = x_init.device
-    nfe = cfg.n_steps * (2 if cfg.mode == "ode" else 1)
-    if (cfg.mode, cfg.operator) == ("sde", "or"):
-        capture = want_capture(capture, dev, "superpose")
-        if noise is not None:
-            zs = torch.stack([torch.as_tensor(noise[i], dtype=x_init.dtype, device=dev)
-                              for i in range(cfg.n_steps)])
-        else:
-            # one draw a step, in order, as the step-by-step loop draws them
-            zs = torch.empty((cfg.n_steps,) + tuple(x_init.shape), dtype=x_init.dtype,
-                             device=dev)
-            for i in range(cfg.n_steps):
-                zs[i] = torch.randn(x_init.shape, generator=generator, dtype=x_init.dtype,
-                                    device=dev)
-        key = (score_fn, tuple(x_init.shape), x_init.dtype, n_models, cfg)
-        loop = (graphs or {}).get(key) if capture else None
-        if loop is None:
-            loop = _SdeOrLoop(score_fn, cfg, sde_or_step_table(schedule, cfg).to(dev), x_init,
-                              zs, n_models)
-            if capture and graphs is not None:
-                graphs[key] = loop
-        else:
-            loop.load(x_init, zs)
-        x, logq = loop.run(capture)
-        return x, logq, nfe
-    steps = {("sde", "avg"): avg_sde_step, ("ode", "or"): ode_step, ("ode", "avg"): ode_step}
-    if (cfg.mode, cfg.operator) not in steps:
-        raise ValueError(f"unknown mode / operator: {cfg.mode} / {cfg.operator}")
-    if capture:
-        raise ValueError(f"capture=True: only sde / or runs as a captured step, not "
-                         f"{cfg.mode} / {cfg.operator}")
-    step = steps[cfg.mode, cfg.operator]
-    x = x_init
-    logq = torch.zeros((x.shape[0], n_models), dtype=torch.float32, device=dev)
-    # float32 host scalars, in the JAX scan's order of operations
-    dt = torch.tensor(cfg.dt, dtype=torch.float32)
-    for i in range(cfg.n_steps):
-        t = cfg.t_1 - torch.tensor(i, dtype=torch.float32) * dt
-        if noise is not None:
-            z = torch.as_tensor(noise[i], dtype=x.dtype, device=dev)
-        elif cfg.mode == "ode":
-            z = ito.rademacher(x.shape, generator, x.dtype, dev)
-        else:
-            z = torch.randn(x.shape, generator=generator, dtype=x.dtype, device=dev)
-        x, logq = step(z, x, logq, t, dt, score_fn, schedule, cfg)
-    return x, logq, nfe
-
+    return SuperposeSampler(score_fn, schedule, cfg, n_models)(
+        x_init, noise=noise, generator=generator, capture=capture)

@@ -65,23 +65,23 @@ def _nvcc() -> str:
         "superdiff_tpu_torch are built from source at first use")
 
 
-def _target(name: str) -> Path:
+def _target(name: str, csrc: Path = CSRC) -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in [CSRC / f"{name}.cu"] + sorted(CSRC.glob("*.cuh")):
+    for src in [csrc / f"{name}.cu"] + sorted(csrc.glob("*.cuh")):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return build_dir() / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
-def _start_build(name: str):
+def _start_build(name: str, csrc: Path = CSRC):
     """Start ``nvcc`` for one kernel library; returns (process, tmp, target)
     or None when the library is already built."""
-    target = _target(name)
+    target = _target(name, csrc)
     if target.exists():
         return None
     target.parent.mkdir(parents=True, exist_ok=True)
     tmp = target.with_name(f"{target.stem}.{os.getpid()}.tmp.so")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(csrc / f"{name}.cu")]
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                             text=True)
     return proc, tmp, target
@@ -108,8 +108,9 @@ def build_all(names=KERNELS) -> dict[str, str]:
         return {n: _finish_build(n, s) for n, s in started}
 
 
-def load(name: str, signatures: dict) -> ctypes.CDLL:
-    """The loaded library for ``csrc/<name>.cu``, building it if needed.
+def load(name: str, signatures: dict, csrc: Path = CSRC) -> ctypes.CDLL:
+    """The loaded library for ``<csrc>/<name>.cu`` (``csrc`` defaults to
+    this package's kernels), building it if needed.
 
     ``signatures`` maps each exported function to ``(restype, argtypes)``;
     they are declared once, when the library is first loaded.
@@ -119,8 +120,8 @@ def load(name: str, signatures: dict) -> ctypes.CDLL:
         return lib
     with _lock:
         if name not in _libs:
-            _finish_build(name, _start_build(name))
-            lib = ctypes.CDLL(str(_target(name)))
+            _finish_build(name, _start_build(name, csrc))
+            lib = ctypes.CDLL(str(_target(name, csrc)))
             for fn, (restype, argtypes) in signatures.items():
                 getattr(lib, fn).restype = restype
                 getattr(lib, fn).argtypes = argtypes

@@ -260,10 +260,6 @@ bool vec4_ok(int D, const void* sscores, const void* x, const void* eps, const v
 
 extern "C" int fused_sde_step_max_models() { return kMaxModels; }
 
-// the cluster size (CTAs per row) a launch at row length D takes, on
-// 16-byte aligned tensors
-extern "C" int fused_sde_step_cluster_size(int D) { return cluster_size(D, D % 4 == 0); }
-
 // sigma, beta, da, dt: device pointers to fp32 scalars
 extern "C" int fused_sde_step_launch(const void* sscores, const void* x, const void* eps,
                                      const void* logq, void* new_x, void* new_logq, int N,

@@ -31,8 +31,8 @@
 // rank 0's shared memory is written, so the other CTAs may leave once it
 // has passed (rank 0 reading the ranks' pairs instead needs a second full
 // barrier, so no CTA leaves while its shared memory is read, and ran
-// slower). `scripts/torch_step_kernel_variants.py` times variants of this
-// source: the reduction tail is most of the time above the launch floor.
+// slower). Timed variants of this source put most of the time above the
+// launch floor in the reduction tail (PERF.md).
 //
 // sigma and dsigma are read from device memory (two fp32 scalars), as the
 // TPU kernel takes them by scalar prefetch, so one captured launch serves
@@ -226,22 +226,6 @@ cudaLaunchConfig_t cluster_config(cudaLaunchAttribute& attr, int cluster, int B,
 }
 
 }  // namespace
-
-// An empty kernel on the same grid of clusters: the device time of one
-// launch with no work, the floor a step epilogue's time is read against.
-__global__ void empty_cluster_kernel() {}
-
-extern "C" int sd_step_empty_launch(int cluster, int rows, void* stream) {
-  cudaLaunchAttribute attr;
-  const cudaLaunchConfig_t cfg =
-      cluster_config(attr, cluster, rows, static_cast<cudaStream_t>(stream));
-  const cudaError_t err = cudaLaunchKernelEx(&cfg, empty_cluster_kernel);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  return static_cast<int>(cudaGetLastError());
-}
-
-// the cluster size: CTAs a row
-extern "C" int sd_or_step_cluster_size() { return kCluster; }
 
 extern "C" int sd_or_step_launch(const void* v_obj, const void* v_bg, const void* v_unc,
                                  const void* x, const void* eps, const void* ll,

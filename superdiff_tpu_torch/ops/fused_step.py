@@ -31,7 +31,6 @@ from . import _build
 _vp, _ci, _cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
     "fused_sde_step_max_models": (_ci, []),
-    "fused_sde_step_cluster_size": (_ci, [_ci]),
     "fused_sde_step_launch": (_ci, [_vp] * 6 + [_ci] * 3 + [_vp] * 4 + [_cf, _vp]),
 }
 
@@ -108,8 +107,3 @@ def fused_sde_step(sscores, x, eps, logq, da, beta, sigma, dt, *, temperature=1e
 
 fused_sde_step.launches = 0
 
-
-def cluster_size(d: int) -> int:
-    """CTAs per row (the cluster size) the kernel takes at row length ``d``
-    on 16-byte aligned tensors: one 16-byte unit per thread, at most 4."""
-    return _build.load("fused_step", _SIGNATURES).fused_sde_step_cluster_size(d)

@@ -30,9 +30,7 @@ from . import _build
 
 _vp, _ci, _cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
-    "sd_or_step_cluster_size": (_ci, []),
     "sd_or_step_launch": (_ci, [_vp] * 11 + [_ci] * 2 + [_cf] * 3 + [_vp]),
-    "sd_step_empty_launch": (_ci, [_ci, _ci, _vp]),
 }
 
 
@@ -101,16 +99,3 @@ def sd_or_step(v_obj, v_bg, v_unc, x, eps, ll, sigma, dsigma,
 
 sd_or_step.launches = 0
 
-
-def cluster_size() -> int:
-    """CTAs per row (the cluster size) the kernel launches."""
-    return _build.load("sd_fused_step", _SIGNATURES).sd_or_step_cluster_size()
-
-
-def empty_launch(like: torch.Tensor, cluster: int, rows: int) -> None:
-    """Launch an empty kernel on ``rows`` clusters of ``cluster`` CTAs on the
-    stream of ``like``'s device: the floor of one launch, for timing (not a
-    kernel of the path, so not counted)."""
-    lib = _build.load("sd_fused_step", _SIGNATURES)
-    _build.check(lib.sd_step_empty_launch(cluster, rows, _build.stream_ptr(like)),
-                 "sd_step_empty_launch")

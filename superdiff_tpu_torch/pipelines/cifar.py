@@ -17,7 +17,7 @@ from typing import Mapping, Optional, Sequence, Union
 import torch
 
 from ..core.schedules import VPSchedule
-from ..core.superpose import SuperposeConfig, superpose
+from ..core.superpose import SuperposeConfig, SuperposeSampler
 from ..models.ensemble import make_stacked_score_fn
 from ..models.from_jax import init_like_flax_
 from ..models.unet import ScoreUNet
@@ -109,8 +109,8 @@ def make_generator(
     ``generator``. ``labels`` (B,) integers, for class-conditioned models.
     On CUDA tensors the SDE + OR step runs the ``fused_sde_step`` kernel,
     replayed from a CUDA graph unless ``capture=False`` (``superpose``'s
-    ``capture``); the closure keeps its captured loop, so a later call
-    copies its inputs in and replays.
+    ``capture``); the closure keeps its ``SuperposeSampler``, so a later
+    call copies its inputs into the captured loop and replays every step.
     """
     models = list(models)
     dev = next(models[0].parameters()).device
@@ -120,8 +120,7 @@ def make_generator(
     sp_cfg = SuperposeConfig(n_steps=n_steps or cfg.n_sample_steps, t_1=cfg.t_1,
                              mode=mode, operator=operator)
     shape = (cfg.eval_batch_size, cfg.image_size, cfg.image_size, cfg.num_channels)
-    schedule = VPSchedule()
-    graphs = {}
+    sampler = SuperposeSampler(score_fn, VPSchedule(), sp_cfg, len(models))
 
     def generate(generator: Optional[torch.Generator] = None, noise=None):
         if noise is None:
@@ -129,8 +128,7 @@ def make_generator(
         else:
             x1 = torch.as_tensor(noise[0], dtype=torch.float32, device=dev)
             zs = noise[1]
-        x0, logq, _ = superpose(x1, score_fn, schedule, sp_cfg, len(models), noise=zs,
-                                generator=generator, capture=capture, graphs=graphs)
+        x0, logq, _ = sampler(x1, noise=zs, generator=generator, capture=capture)
         return x0, logq
 
     return generate

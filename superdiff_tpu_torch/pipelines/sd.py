@@ -24,10 +24,12 @@ explicit ``torch.Generator``.
 ``or`` runs on static buffers (``_OrLoop``): each step reads its scalars
 (t, sqrt(sigma^2 + 1), sigma, dsigma, a table built on the host in fp32 by
 the ops the other methods' loop uses) and its noise through a device step
-index. On the card it is captured in a CUDA graph once and replayed every
-step (``capture=None`` or ``True``), the port's counterpart of the JAX
-sampler's ``lax.scan``; ``capture=False`` calls the same step eagerly, as
-the CPU does. The other methods run eagerly.
+index. On the card (``capture=None`` or ``True``) the first run takes step
+0 eagerly, captures the step in a CUDA graph and replays it for the other
+steps, the port's counterpart of the JAX sampler's ``lax.scan``; the loop
+is kept on the ``SDModules`` (``or_loop``, one at a time), so a later run
+of the same shapes and config replays every step. ``capture=False`` calls
+the same step eagerly, as the CPU does. The other methods run eagerly.
 """
 
 from __future__ import annotations
@@ -79,6 +81,10 @@ class SDModules:
     vae: VAEDecoder
     vae_scaling: float
     device: torch.device
+    # the captured ``or`` loop of the last captured run (its static buffers
+    # and CUDA graph), replayed by the next run of the same shapes and config
+    or_loop: Optional["_OrLoop"] = dataclasses.field(default=None, init=False, repr=False,
+                                                     compare=False)
 
 
 def build_sd_modules(
@@ -152,7 +158,7 @@ class _OrLoop(StepLoop):
 
     def __init__(self, mod: SDModules, cfg: SDPipelineConfig, table, x_init, zs, big_c):
         dev = x_init.device
-        self.unet, self.cfg, self.table = mod.unet, cfg, table
+        self.unet, self.cfg, self.table = mod.unet, dataclasses.replace(cfg), table
         # the inputs are copied: a kept loop loads the next run's over them
         self.x_init, self.zs, self.big_c = x_init.clone(), zs.clone(), big_c.clone()
         b, n = x_init.shape[0], table.shape[0]
@@ -161,6 +167,13 @@ class _OrLoop(StepLoop):
         self.idx = torch.zeros((1,), dtype=torch.long, device=dev)
         self.kappa = torch.zeros((n, b), dtype=torch.float32, device=dev)
         self.lls = torch.zeros((n, b, 2), dtype=torch.float32, device=dev)
+
+    def fits(self, mod: SDModules, cfg: SDPipelineConfig, x_init, big_c) -> bool:
+        """Whether a run of ``mod``'s UNet under ``cfg`` on these inputs can
+        replay this loop: the same UNet, config, shapes, dtypes and device."""
+        return (self.unet is mod.unet and self.cfg == cfg
+                and all(a.shape == b.shape and a.dtype == b.dtype and a.device == b.device
+                        for a, b in ((self.x_init, x_init), (self.big_c, big_c))))
 
     def load(self, x_init, zs, big_c):
         """This run's inputs into the static buffers."""
@@ -212,7 +225,6 @@ def superdiff_sd_sample(
     generator: Optional[torch.Generator] = None,
     noise: Optional[Tuple[torch.Tensor, ...]] = None,
     capture: Optional[bool] = None,
-    graphs: Optional[dict] = None,
 ) -> Tuple[torch.Tensor, dict]:
     """Run one composed generation; returns (final latents NHWC fp32, traces).
 
@@ -224,9 +236,9 @@ def superdiff_sd_sample(
     all fp32.
     ``capture`` (``or`` only): replay one step captured in a CUDA graph
     (``None``: on the card, not on the CPU; ``True`` on CPU tensors or
-    another method raises); ``False`` runs the same step eagerly.
-    ``graphs``: a dict that keeps the captured loop for the next call of the
-    same shapes (the caller's; ``make_sampler`` passes its own).
+    another method raises); ``False`` runs the same step eagerly. The
+    captured loop stays on ``mod`` (``mod.or_loop``) until a captured run of
+    other shapes or config replaces it; ``mod.or_loop = None`` frees it.
     """
     _check_method(method)
     dev = ctx_obj.device
@@ -252,14 +264,14 @@ def superdiff_sd_sample(
     big_c = torch.cat([ctx_obj, ctx_unc, ctx_unc] if is_sd_baseline
                       else [ctx_obj, ctx_bg, ctx_unc])
     if method == "or":
-        key = (tuple(x.shape), tuple(big_c.shape), big_c.dtype, dataclasses.astuple(cfg))
-        loop = (graphs or {}).get(key) if capture else None
-        if loop is None:
-            loop = _OrLoop(mod, cfg, or_step_table(timesteps, sigmas).to(dev), x, zs, big_c)
-            if capture and graphs is not None:
-                graphs[key] = loop
-        else:
-            loop.load(x, zs, big_c)
+        if capture and mod.or_loop is not None and mod.or_loop.fits(mod, cfg, x, big_c):
+            mod.or_loop.load(x, zs, big_c)
+            return mod.or_loop.run(capture)
+        if capture:
+            mod.or_loop = None  # its graph's memory goes before the next is captured
+        loop = _OrLoop(mod, cfg, or_step_table(timesteps, sigmas).to(dev), x, zs, big_c)
+        if capture:
+            mod.or_loop = loop
         return loop.run(capture)
     # ll starts at 1.0 as in the reference: a constant that cancels in kappa
     ll_obj = ll_bg = ll_unc = torch.ones(b, dtype=torch.float32, device=dev)
@@ -336,16 +348,12 @@ def superdiff_sd_sample(
 def make_sampler(mod: SDModules, method: str, cfg: SDPipelineConfig, *,
                  capture: Optional[bool] = None):
     """Sampler closure: (ctx_obj, ctx_bg, ctx_unc, *, generator, noise) ->
-    (latents, traces). ``capture`` as in :func:`superdiff_sd_sample`; the
-    closure keeps its captured ``or`` loop, so a later call of the same
-    shapes copies its inputs in and replays."""
+    (latents, traces). ``capture`` as in :func:`superdiff_sd_sample`."""
     _check_method(method)
-    graphs = {}
 
     def run(ctx_obj, ctx_bg, ctx_unc, *, generator=None, noise=None):
         return superdiff_sd_sample(mod, method, ctx_obj, ctx_bg, ctx_unc, cfg,
-                                   generator=generator, noise=noise, capture=capture,
-                                   graphs=graphs)
+                                   generator=generator, noise=noise, capture=capture)
 
     return run
 

@@ -11,7 +11,10 @@ it replaced: ``_frozen_or_loop`` and ``_frozen_sde_or_loop`` below are
 those loops as they were, kept verbatim apart from the method branches they
 no longer need. Capture itself needs the card (``chip_smoke.py`` holds the
 captured runs to these eager ones there); asking for it on CPU tensors
-raises.
+raises. What a captured run does around the graph (step 0 eagerly, one
+capture, the other steps replayed, the loop kept for the next run of the
+same UNet, config and shapes) is checked here with a stand-in graph that
+replays the recorded step on the CPU.
 """
 
 import numpy as np
@@ -204,6 +207,86 @@ def test_sd_capture_of_an_eager_method_raises(sd_stack, method):
         sd.superdiff_sd_sample(mod, method, *ctxs, cfg, noise=_sd_noise(3), capture=True)
 
 
+# --- the captured run's bookkeeping, with a stand-in for the graph -------------
+
+class _StandInGraph:
+    """What ``capture_step`` returns, on the CPU: ``replay()`` calls the
+    step it recorded (capture itself needs the card)."""
+
+    def __init__(self, step):
+        self.step, self.replays = step, 0
+
+    def replay(self):
+        self.replays += 1
+        self.step()
+
+
+@pytest.fixture
+def stand_in_capture(monkeypatch):
+    """Capture "on" for CPU tensors: ``want_capture`` resolves None to True,
+    ``capture_step`` runs the step once eagerly (the sampler's step 0, as on
+    the card) and records it without running it. Returns the graphs made."""
+    from superdiff_tpu_torch.core import capture
+
+    made = []
+
+    def capture_step(step):
+        step()
+        made.append(_StandInGraph(step))
+        return made[-1]
+
+    monkeypatch.setattr(capture, "capture_step", capture_step)
+    for module in (sd, sp):
+        monkeypatch.setattr(module, "want_capture", lambda c, dev, what: c is not False)
+    return made
+
+
+def test_captured_or_run_takes_step_0_eagerly_then_replays(sd_stack, stand_in_capture):
+    """The first captured run: step 0 eagerly, one capture, the other steps
+    replayed; the loop stays on the modules, so the next ``generate`` of
+    the same shapes replays every step; each gives the frozen loop's
+    answer."""
+    mod, ctxs = sd_stack
+    made = stand_in_capture
+    mod.or_loop = None
+    cfg = sd.SDPipelineConfig(num_inference_steps=SD_STEPS, height=HW, width=HW)
+    for seed, replays in ((12, SD_STEPS - 1), (13, 2 * SD_STEPS - 1)):
+        noise = _sd_noise(seed)
+        ref_x, ref_tr = _frozen_or_loop(mod, *ctxs, cfg, noise)
+        out = sd.generate(mod, "or", "a cat", "a dog", batch_size=BATCH, cfg=cfg,
+                          decode=False, noise=noise)
+        assert len(made) == 1 and made[0].replays == replays
+        assert torch.equal(out["latents"], ref_x)
+        _assert_same_traces(out["traces"], ref_tr)
+    mod.or_loop = None
+
+
+def test_kept_or_loop_replays_only_its_own_unet_and_config(sd_stack, stand_in_capture):
+    """Another config, or another UNet behind the same kept loop, captures
+    anew."""
+    import copy
+    import dataclasses
+
+    mod, ctxs = sd_stack
+    made = stand_in_capture
+    mod.or_loop = None
+    cfg = sd.SDPipelineConfig(num_inference_steps=SD_STEPS, height=HW, width=HW)
+    noise = _sd_noise(14)
+    sd.superdiff_sd_sample(mod, "or", *ctxs, cfg, noise=noise)
+    hotter = dataclasses.replace(cfg, temperature=2.0)
+    x, tr = sd.superdiff_sd_sample(mod, "or", *ctxs, hotter, noise=noise)
+    assert len(made) == 2
+    ref_x, ref_tr = _frozen_or_loop(mod, *ctxs, hotter, noise)
+    assert torch.equal(x, ref_x)
+    _assert_same_traces(tr, ref_tr)
+    other = dataclasses.replace(mod, unet=copy.deepcopy(mod.unet))
+    assert other.or_loop is None  # a copy of the modules does not take the loop
+    other.or_loop = mod.or_loop
+    sd.superdiff_sd_sample(other, "or", *ctxs, hotter, noise=noise)
+    assert len(made) == 3 and other.or_loop.unet is other.unet
+    mod.or_loop = None
+
+
 # --- CIFAR SDE + OR -------------------------------------------------------------
 
 TINY = dict(nf=16, ch_mult=(1, 2), num_res_blocks=1, attn_resolutions=(8,),
@@ -324,4 +407,22 @@ def test_two_calls_give_the_frozen_loops_answers(cifar_models):
         ref = _frozen_sde_or_loop(x1, _frozen_score_fn(models, LABELS), VPSchedule(), sp_cfg,
                                   2, noise=zs)
         got = generate(noise=(x1, zs))
+        assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
+
+
+def test_captured_sde_or_run_takes_step_0_eagerly_then_replays(cifar_models,
+                                                               stand_in_capture):
+    """The generator's first captured call: step 0 eagerly, one capture,
+    the other steps replayed; its second call replays every step; both give
+    the frozen loop's answers."""
+    cfg, models = cifar_models
+    made = stand_in_capture
+    generate = cifar.make_generator(models, cfg, n_steps=CIFAR_STEPS, labels=LABELS)
+    sp_cfg = sp.SuperposeConfig(n_steps=CIFAR_STEPS)
+    for seed, replays in ((15, CIFAR_STEPS - 1), (16, 2 * CIFAR_STEPS - 1)):
+        x1, zs = _cifar_noise(seed)
+        ref = _frozen_sde_or_loop(x1, _frozen_score_fn(models, LABELS), VPSchedule(), sp_cfg,
+                                  2, noise=zs)
+        got = generate(noise=(x1, zs))
+        assert len(made) == 1 and made[0].replays == replays
         assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
