@@ -118,6 +118,26 @@ Phases, in order; any failed check raises and the script exits non-zero:
    64x64-latent SD UNet forward and a batch-4 ScoreUNet forward on the card
    are each held against the same weights in fp32 on the host CPU, as is a
    full-width ``VAEEncoder`` forward at 256 px.
+6. CIFAR training and FID evaluation, in a fresh process (``main`` starts
+   this script again with ``--phase6-only``, so that no torch.profiler run of
+   phase 5 slows its timings): ``pipelines.cifar.train`` of the
+   ``vpsde_less_5`` and ``vpsde_more_5`` configs at full width (batch 128,
+   bf16, dropout 0.1) for ``--train-steps`` steps each on the synthetic
+   CIFAR-10 stand-in, the loss finite and the parameters and EMA moved; ms
+   per step of the loop and of synced steps after two warmups, images/s,
+   peak memory; the latest checkpoint reloaded bit for bit; a second
+   ``train`` call resuming to the expected step; 4 steps straight against
+   2 + checkpoint + restore + 2 (bit for bit, or within 2 x the summed
+   learning rates); one train step in bf16 on the card against fp32 on the
+   CPU (loss and gradients within 5e-2); ``fid_stats`` over the stand-in
+   with seed-drawn Inception weights written as a JAX-layout ``.npz``, the
+   card's pool features within 1e-3 of the CPU's, Inception images/s with
+   cuDNN TF32 off and on; ``evaluate_joint_fid`` over the two runs (OR,
+   SDE, 200 steps, 300 samples) through the captured sampler, its wall and
+   FID, its ``fused_sde_step`` wrapper calls (step 0 and the capture); then
+   under torch.profiler 3 train steps (device time by family, idle share)
+   and two recorded ``evaluate_joint_fid`` runs of 10 steps x 2 batches,
+   whose ``fused_sde_step`` kernels on the device must be 20.
 
 The line before the last is the kernel table as JSON, one row per TPU kernel:
 ``launches`` the launches over the run of the path the kernel serves, in
@@ -142,6 +162,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import math
 import re
 import subprocess
 import sys
@@ -1805,11 +1826,430 @@ def sd_step_profile(sd, mod, args, dev, hw, **calls):
     expect_profiled_launches(f"captured {hw} px or", counts, 1, **calls)
 
 
+def inception_npz(path, seed):
+    """Seed-drawn InceptionV3 weights in the JAX package's converted layout
+    (``conv{i}/kernel`` HWIO, ``conv{i}/bias``, ``predictions/...``), the
+    distributions of JAX ``inception.init_params``: normal kernels of
+    variance 2 / fan_in (1 / fan_in for the head), zero biases."""
+    import numpy as np
+
+    from superdiff_tpu_torch.models import inception
+
+    shapes = inception.InceptionV3(include_top=True)
+    rng = np.random.default_rng(seed)
+    params = {}
+    for i, conv in enumerate(shapes.convs):
+        o, c, kh, kw = conv.weight.shape
+        k = rng.standard_normal((kh, kw, c, o), dtype=np.float32)
+        params[f"conv{i}"] = {"kernel": k * np.float32(np.sqrt(2.0 / (kh * kw * c))),
+                              "bias": np.zeros(o, np.float32)}
+    k = rng.standard_normal((inception.POOL_DIM, inception.NUM_CLASSES), dtype=np.float32)
+    params["predictions"] = {"kernel": k * np.float32(np.sqrt(1.0 / inception.POOL_DIM)),
+                             "bias": np.zeros(inception.NUM_CLASSES, np.float32)}
+    inception.save_npz(params, str(path))
+    return params
+
+
+def train_metrics(workdir):
+    import json
+
+    with open(Path(workdir) / "metrics.jsonl") as f:
+        return [json.loads(line) for line in f]
+
+
+def rel_l2(a, b):
+    return ((a.float() - b.float()).norm() / b.float().norm()).item()
+
+
+def train_run(cfg, workdir, dev, what):
+    """``pipelines.cifar.train`` of ``cfg`` from scratch: its wall, the loop's
+    ms per step from ``metrics.jsonl`` (``log_every`` steps between the
+    synced loss reads, the first two intervals left out as warmups), the
+    loss finite, and the parameters and EMA moved from the initial draw.
+    Returns the state."""
+    import statistics
+
+    import torch
+
+    from superdiff_tpu_torch.pipelines import cifar
+
+    _, state0, _, _ = cifar.init_state(cfg, str(Path(workdir) / "initial"), device=dev)
+    p0 = {n: p.detach().clone() for n, p in state0.params.items()}
+    del state0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    state = cifar.train(cfg, str(workdir), device=dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    recs = train_metrics(workdir)
+    losses = [r["loss"] for r in recs]
+    loop_ms = statistics.median(1e3 / r["steps_per_sec"] for r in recs[2:])
+    moved = sum((p.detach() - p0[n]).float().norm() ** 2 for n, p in state.params.items()) ** 0.5
+    ema_moved = sum((state.params_ema[n] - p0[n]).float().norm() ** 2 for n in p0) ** 0.5
+    size = sum(p.float().norm() ** 2 for p in p0.values()) ** 0.5
+    ckpts = sorted(p.name for p in (Path(workdir) / "checkpoints").iterdir())
+    log(f"  train {what} ({cfg.train_split}, {cfg.n_iters} steps, batch {cfg.batch_size}, "
+        f"dropout {cfg.dropout}, {cfg.compute_dtype}): {wall:.3f} s wall, data and "
+        f"checkpoints included; loop {loop_ms:.3f} ms per step ({cfg.batch_size / loop_ms * 1e3:.1f}"
+        f" images/s; median over logged intervals 3-{len(recs)}, {cfg.log_every} steps each); "
+        f"peak memory {(torch.cuda.max_memory_allocated() - base) / 2**30:.3f} GiB above the "
+        f"{base / 2**30:.3f} held before; losses "
+        f"{[round(v, 3) for v in losses]}; |params - initial| / |initial| "
+        f"{(moved / size).item():.3e}, EMA {(ema_moved / size).item():.3e}; checkpoints {ckpts}")
+    if state.step != cfg.n_iters + 1:
+        raise AssertionError(f"{what}: state.step {state.step} != {cfg.n_iters + 1}")
+    if not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"{what}: loss not finite: {losses}")
+    if not (0 < ema_moved < moved):
+        raise AssertionError(f"{what}: params moved {moved}, EMA {ema_moved}")
+    return state
+
+
+def train_step_timing(state, cfg, dev, steps=10):
+    """ms per train step on one batch, host clock around each synced step
+    after two synced warmups, and the peak memory of those steps (all the
+    card holds, the state included)."""
+    import statistics
+
+    import torch
+
+    from superdiff_tpu_torch.core.dsm import make_dsm_loss
+    from superdiff_tpu_torch.core.schedules import VPSchedule
+    from superdiff_tpu_torch.data.datasets import ImageDataset
+    from superdiff_tpu_torch.pipelines import cifar
+    from superdiff_tpu_torch.train import make_optimizer, make_train_step
+
+    opt = make_optimizer(cfg.lr, cfg.warmup, grad_clip=cfg.grad_clip)
+    step = make_train_step(opt, make_dsm_loss(cifar._apply_fn(state.model), VPSchedule()))
+    host = next(ImageDataset(cfg.dataset, cfg.train_split, seed=5).batches(cfg.batch_size))
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in host.items()}
+    for _ in range(2):
+        step(state, batch)
+        torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        step(state, batch)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    ms = statistics.median(times)
+    log(f"  train step (batch {cfg.batch_size}, synced, after two warmups): median {ms:.3f} ms "
+        f"({cfg.batch_size / ms * 1e3:.1f} images/s) over {steps} "
+        f"{[round(v, 3) for v in times]}; peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+    return step, batch
+
+
+def checkpoint_reload_check(state, cfg, workdir, dev):
+    """The latest checkpoint, restored by ``init_state`` into a fresh state,
+    equals the state ``train`` returned, bit for bit."""
+    import torch
+
+    from superdiff_tpu_torch.pipelines import cifar
+
+    _, back, _, _ = cifar.init_state(cfg, str(workdir), device=dev)
+    same = [back.step == state.step, back.run_id == state.run_id,
+            torch.equal(back.sampler_state, state.sampler_state),
+            torch.equal(back.generator.get_state(), state.generator.get_state()),
+            back.schedule.state_dict() == state.schedule.state_dict()]
+    for n, p in state.params.items():
+        q = back.params[n]
+        same += [torch.equal(p, q), torch.equal(state.params_ema[n], back.params_ema[n])]
+        same += [torch.equal(v, back.optimizer.state[q][k])
+                 for k, v in state.optimizer.state[p].items()]
+    log(f"  checkpoint reload (init_state of the run dir): {sum(same)} of {len(same)} "
+        f"tensors and fields bit-identical to the saved state")
+    if not all(same):
+        raise AssertionError("a checkpoint did not reload bit-identical")
+
+
+def fresh_train_state(cfg, dev, seed):
+    """A TrainState of ``cfg`` on ``dev`` with drawn non-zero parameters
+    (the Flax init's zero output layers would keep the gradients out of the
+    net) and its DSM step."""
+    import torch
+
+    from superdiff_tpu_torch.core.dsm import make_dsm_loss
+    from superdiff_tpu_torch.core.schedules import VPSchedule
+    from superdiff_tpu_torch.pipelines import cifar
+    from superdiff_tpu_torch.train import init_train_state, make_optimizer, make_train_step
+
+    with torch.device(dev):
+        model = cfg.model()
+    draw_nonzero_(model, seed)
+    opt = make_optimizer(cfg.lr, cfg.warmup, grad_clip=cfg.grad_clip)
+    state = init_train_state(torch.Generator(device=dev).manual_seed(seed), model, opt,
+                             ema_rate=cfg.ema_rate)
+    loss_fn = make_dsm_loss(cifar._apply_fn(model), VPSchedule())
+    return state, make_train_step(opt, loss_fn), loss_fn
+
+
+def train_step_reference_check(cfg, dev, batch_size=16):
+    """One train step at dropout 0 on the card (bf16) and in fp32 on the host
+    CPU, from the same drawn state, batch and eps: the loss within 5e-2
+    relative, the gradients within 5e-2 relative L2 (the bound of the
+    forward checks of phase 5), the next cursor bit for bit, and the
+    parameters unchanged on both sides (the warmup's first rate is 0)."""
+    import dataclasses
+
+    import torch
+
+    from superdiff_tpu_torch.data.datasets import ImageDataset
+
+    cfg = dataclasses.replace(cfg, dropout=0.0)
+    card, card_step, card_loss = fresh_train_state(cfg, dev, 21)
+    cpu, cpu_step, cpu_loss = fresh_train_state(
+        dataclasses.replace(cfg, compute_dtype="float32"), torch.device("cpu"), 21)
+    cpu.model.load_state_dict({k: v.cpu() for k, v in card.model.state_dict().items()})
+    host = next(ImageDataset(cfg.dataset, cfg.train_split, seed=9).batches(batch_size))
+    eps = torch.randn(host["image"].shape, generator=torch.Generator().manual_seed(22))
+    grads, losses = {}, {}
+    for name, state, loss_fn, step, d in (("card", card, card_loss, card_step, dev),
+                                          ("cpu", cpu, cpu_loss, cpu_step, "cpu")):
+        batch = {k: torch.from_numpy(v).to(d) for k, v in host.items()}
+        loss, _ = loss_fn(state.sampler_state, batch, eps=eps.to(d))
+        grads[name] = torch.cat([g.flatten().cpu() for g in torch.autograd.grad(
+            loss, list(state.model.parameters()))])
+        before = {n: p.detach().clone() for n, p in state.params.items()}
+        t0 = time.perf_counter()
+        _, losses[name] = step(state, batch, eps=eps.to(d))
+        losses[name] = losses[name].item()
+        if name == "cpu":
+            cpu_s = time.perf_counter() - t0
+        if not all(torch.equal(p, before[n]) for n, p in state.params.items()):
+            raise AssertionError(f"{name}: the first update moved the parameters")
+    rel_loss = abs(losses["card"] - losses["cpu"]) / abs(losses["cpu"])
+    rel_grad = rel_l2(grads["card"], grads["cpu"])
+    same_cursor = card.sampler_state.cpu().numpy().tobytes() == cpu.sampler_state.numpy().tobytes()
+    log(f"  train step, bf16 on the card vs fp32 on the CPU ({cpu_s:.1f} s), batch "
+        f"{batch_size}, dropout 0, drawn weights: loss {losses['card']:.6g} vs "
+        f"{losses['cpu']:.6g} (relative {rel_loss:.3e}, tol 5e-2), gradients relative L2 "
+        f"{rel_grad:.3e} (tol 5e-2, |g| {grads['cpu'].norm().item():.4g}), cursor "
+        f"{'bit-identical' if same_cursor else 'DIFFERS'}, parameters unchanged by the "
+        f"first update on both")
+    if not (rel_loss < 5e-2 and rel_grad < 5e-2 and same_cursor):
+        raise AssertionError("the card's train step differs from the CPU's")
+
+
+def resume_check(cfg, workdir, dev, steps=4):
+    """``steps`` train steps straight, against ``steps // 2``, a checkpoint,
+    a fresh state restored from it and the rest, on the same batches
+    (dropout on, eps from the state's generator): the step, cursor and
+    generator state exactly, and the parameters, EMA and Adam moments bit
+    for bit or, where cuDNN's backward convolutions are not deterministic,
+    within 2 x the summed learning rates (parameters, EMA) and 1e-3 of the
+    largest moment."""
+    import torch
+
+    from superdiff_tpu_torch.data.datasets import ImageDataset
+    from superdiff_tpu_torch.train import checkpoints
+
+    it = ImageDataset(cfg.dataset, cfg.train_split, seed=11).batches(cfg.batch_size)
+    batches = [{k: torch.from_numpy(v).to(dev) for k, v in next(it).items()}
+               for _ in range(steps)]
+
+    def run(resume_at=None):
+        state, step, _ = fresh_train_state(cfg, dev, 31)
+        for i, b in enumerate(batches):
+            if i == resume_at:
+                mgr = checkpoints.make_manager(str(workdir))
+                checkpoints.save(mgr, i, state)
+                state, step, _ = fresh_train_state(cfg, dev, 31)
+                checkpoints.restore_latest(mgr, state)
+            step(state, b)
+        torch.cuda.synchronize()
+        return state
+
+    straight, resumed = run(), run(resume_at=steps // 2)
+    lrs = sum(cfg.lr * min(k / cfg.warmup, 1.0) for k in range(steps))
+    worst = {"params": 0.0, "params_ema": 0.0, "exp_avg": 0.0, "exp_avg_sq": 0.0}
+    exact = True
+    for n, p in straight.params.items():
+        q = resumed.params[n]
+        pairs = {"params": (p, q), "params_ema": (straight.params_ema[n], resumed.params_ema[n])}
+        for k in ("exp_avg", "exp_avg_sq"):
+            pairs[k] = (straight.optimizer.state[p][k], resumed.optimizer.state[q][k])
+        for k, (a, b) in pairs.items():
+            exact &= torch.equal(a, b)
+            scale = 1.0 if k.startswith("params") else straight.optimizer.state[p][k].abs().max()
+            worst[k] = max(worst[k], ((a - b).abs().max() / max(float(scale), 1e-30)).item())
+    same = (straight.step == resumed.step == steps + 1
+            and torch.equal(straight.sampler_state, resumed.sampler_state)
+            and torch.equal(straight.generator.get_state(), resumed.generator.get_state()))
+    log(f"  resume ({steps} steps straight vs {steps // 2} + checkpoint + restore + "
+        f"{steps - steps // 2}, batch {cfg.batch_size}, dropout {cfg.dropout}): "
+        f"{'bit-identical' if exact else 'not bit-identical'}; max |diff| params "
+        f"{worst['params']:.3e}, EMA {worst['params_ema']:.3e} (tol {2 * lrs:.3e} = 2 x the "
+        f"summed learning rates), Adam moments {worst['exp_avg']:.3e} / "
+        f"{worst['exp_avg_sq']:.3e} of the largest (tol 1e-3); step, cursor and generator "
+        f"{'equal' if same else 'DIFFER'}")
+    if not (same and worst["params"] <= 2 * lrs and worst["params_ema"] <= 2 * lrs
+            and worst["exp_avg"] <= 1e-3 and worst["exp_avg_sq"] <= 1e-3):
+        raise AssertionError("the resumed run differs from the straight run")
+
+
+def inception_reference_check(weights, dev, n=4, n_timed=1000):
+    """Pool3 features of ``n`` images on the card (fp32 convolutions, the
+    flags this script runs under) against the same weights in fp32 on the
+    host CPU: within 1e-3 of the largest. Then the throughput of ``n_timed``
+    images with cuDNN's TF32 off (as here) and on (PyTorch's default), in
+    turns, and the TF32 features' distance from the CPU's (printed, not
+    held: no path of this script runs TF32)."""
+    import statistics
+
+    import numpy as np
+    import torch
+
+    from superdiff_tpu_torch.models import inception
+
+    imgs = np.random.default_rng(13).integers(0, 256, (n, 32, 32, 3), dtype=np.uint8)
+    fn = inception.make_feature_fn(weights, device=dev)
+    got = fn(imgs)
+    t0 = time.perf_counter()
+    ref = inception.make_feature_fn(weights, device="cpu")(imgs)
+    err = np.abs(got - ref).max() / np.abs(ref).max()
+    log(f"  InceptionV3 pool3, {n} images, card vs fp32 CPU ({time.perf_counter() - t0:.1f} s):"
+        f" max |diff| {err:.3e} of the largest feature (tol 1e-3)")
+    if not (np.isfinite(got).all() and err < 1e-3):
+        raise AssertionError(f"Inception card-vs-CPU error {err}")
+    many = np.random.default_rng(14).integers(0, 256, (n_timed, 32, 32, 3), dtype=np.uint8)
+    rates, tf32_err = {False: [], True: []}, None
+    try:
+        for tf32 in (False, True, True, False):
+            torch.backends.cudnn.allow_tf32 = tf32
+            fn(many[:128])
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn(many)
+            rates[tf32].append(n_timed / (time.perf_counter() - t0))
+            if tf32:
+                tf32_err = np.abs(fn(imgs) - ref).max() / np.abs(ref).max()
+    finally:
+        torch.backends.cudnn.allow_tf32 = False
+    log(f"  InceptionV3 features, {n_timed} images in batches of 128, in turns: fp32 "
+        f"{statistics.median(rates[False]):.1f} images/s, TF32 {statistics.median(rates[True]):.1f}"
+        f" images/s ({[round(v, 1) for v in rates[False]]}, {[round(v, 1) for v in rates[True]]});"
+        f" TF32 features vs fp32 CPU: max |diff| {tf32_err:.3e} of the largest")
+
+
+def train_eval_phase(dev, args):
+    """Phase 6: the CIFAR training and FID-evaluation path at full width
+    (the ``vpsde_less_5`` / ``vpsde_more_5`` configs as published: nf 128,
+    ch_mult (1,2,2,2), attention at 16 and 8, dropout 0.1, batch 128, bf16,
+    lr 2e-4, warmup 5000, EMA 0.9999) on the synthetic CIFAR-10 stand-in,
+    cut to ``--train-steps`` steps each; the files go to
+    ``build/chip_smoke_train`` (removed at the end)."""
+    import dataclasses
+    import shutil
+
+    import torch
+
+    from superdiff_tpu_torch.pipelines import cifar
+
+    work = ROOT / "build" / "chip_smoke_train"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    log(f"  card: {card_line()}")
+    log(f"  torch.backends: cuda.matmul.allow_tf32 {torch.backends.cuda.matmul.allow_tf32}, "
+        f"cudnn.allow_tf32 {torch.backends.cudnn.allow_tf32}, cudnn.benchmark "
+        f"{torch.backends.cudnn.benchmark}, cudnn.deterministic "
+        f"{torch.backends.cudnn.deterministic}")
+    n = args.train_steps
+    cut = dict(n_iters=n, save_every=n // 2, log_every=5, num_samples=300)
+    cfg_a = cifar.CONFIGS["vpsde_less_5"](**cut)
+    cfg_b = cifar.CONFIGS["vpsde_more_5"](seed=2, **cut)
+    state_a = train_run(cfg_a, work / "a", dev, "A")
+    checkpoint_reload_check(state_a, cfg_a, work / "a", dev)
+    step, batch = train_step_timing(state_a, cfg_a, dev)
+    state_b = train_run(cfg_b, work / "b", dev, "B")
+    del state_b
+    torch.cuda.empty_cache()
+    resumed = cifar.train(cfg_a, str(work / "a"), n_iters=n + 2, device=dev)
+    log(f"  train A again with n_iters {n + 2}: resumed from checkpoint {n}, ends at step "
+        f"{resumed.step} (want {n + 3})")
+    if resumed.step != n + 3:
+        raise AssertionError(f"resume ended at step {resumed.step}")
+    del resumed
+    resume_check(cfg_a, work / "resume", dev)
+    train_step_reference_check(cfg_a, dev)
+    torch.cuda.empty_cache()
+
+    weights_path = work / "inception.npz"
+    t0 = time.perf_counter()
+    weights = inception_npz(weights_path, args.seed)
+    log(f"  seed-drawn InceptionV3 weights written as a JAX-layout .npz: "
+        f"{time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    stats_dir = cifar.fid_stats(cfg_a, str(work), inception_weights=str(weights_path),
+                                device=dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    import numpy as np
+
+    stats = {s: np.load(Path(stats_dir) / f"cifar10_{s}_stats.npz")["pool_3"]
+             for s in ("train", "test")}
+    n_imgs = sum(len(v) for v in stats.values())
+    log(f"  fid_stats (synthetic stand-in, train + test, seed-drawn Inception weights): "
+        f"{n_imgs} images in {wall:.3f} s ({n_imgs / wall:.1f} images/s, data included); "
+        f"pool_3 {', '.join(f'{k} {v.shape}' for k, v in stats.items())}")
+    inception_reference_check(weights, dev)
+
+    stats_path = str(Path(stats_dir) / "cifar10_train_stats.npz")
+    zero_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    report = cifar.evaluate_joint_fid(cfg_a, str(work / "joint"), [str(work / "a"),
+                                      str(work / "b")], stoch=True, operator="or",
+                                      stats_path=stats_path,
+                                      inception_weights=str(weights_path), device=dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    files = sorted(p.name for p in (work / "joint" / "eval" / "samples_stoch").iterdir())
+    batches = math.ceil(cfg_a.num_samples / cfg_a.eval_batch_size)
+    log(f"  evaluate_joint_fid (OR, SDE, {cfg_a.n_sample_steps} steps, batch "
+        f"{cfg_a.eval_batch_size}, {cfg_a.num_samples} samples, captured sampler): "
+        f"{wall:.3f} s wall (checkpoints, sampling, Inception, FID); FID {report.get('fid')} "
+        f"(random Inception weights: plumbing, not quality); {len(files)} sample files "
+        f"(want {batches})")
+    expect_counts("evaluate_joint_fid (wrapper calls: step 0 and the capture)", counts,
+                  fused_sde_step=2)
+    if not (set(files) == {f"samples_{i}.npz" for i in range(batches)}
+            and math.isfinite(report.get("fid", math.nan))):
+        raise AssertionError(f"evaluate_joint_fid: report {report}, files {files}")
+    torch.cuda.empty_cache()
+
+    # profiled last: a torch.profiler run slows the later launches
+    fams, wall, _ = profile_by_family(lambda: [step(state_a, batch) for _ in range(3)],
+                                      OUT / "chip_smoke_train_profile.txt")
+    total = sum(fams.values())
+    log(f"  profile (3 train steps, batch {cfg_a.batch_size}): {total / 3:.3f} ms device time "
+        f"per step, {wall / 3:.3f} ms wall per step under the profiler (device idle "
+        f"{1 - total / wall:.3f}); by family (ms per step): " + ", ".join(
+            f"{k} {v / 3:.4f}" for k, v in sorted(fams.items(), key=lambda kv: -kv[1])))
+    del state_a
+    torch.cuda.empty_cache()
+    short = dataclasses.replace(cfg_a, n_sample_steps=10, num_samples=200)
+    # no stats: the FID's square root on the host would take most of each run
+    counted_runs("evaluate_joint_fid, OR, SDE, 10 steps, 2 batches",
+                 lambda: cifar.evaluate_joint_fid(
+                     short, str(work / "counted"), [str(work / "a"), str(work / "b")],
+                     inception_weights=str(weights_path), device=dev),
+                 short.n_sample_steps * 2, cycles=2, fused_sde_step=1)
+    shutil.rmtree(work)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--steps", type=int, default=4)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--cifar-steps", type=int, default=200)
+    ap.add_argument("--train-steps", type=int, default=30)
+    ap.add_argument("--phase6-only", action="store_true",
+                    help="run phase 6 alone (main() starts it so, in a fresh process)")
     args = ap.parse_args(argv)
 
     import torch
@@ -1829,6 +2269,9 @@ def main(argv=None) -> int:
     dev = torch.device("cuda", 0)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    if args.phase6_only:
+        train_eval_phase(dev, args)
+        return 0
     card = card_line()
     log(f"torch {torch.__version__} cuda {torch.version.cuda}; {torch.cuda.get_device_name(0)}")
 
@@ -1956,6 +2399,19 @@ def main(argv=None) -> int:
     launches.update(cifar_counted_run(models, cifar_cfg, labels, dev))
     cifar_profile(models, cifar_cfg, labels, dev)
     score_unet_reference_check(models[0], cifar_cfg, dev)
+    del models
+    torch.cuda.empty_cache()
+
+    log(f"phase 6: CIFAR training and FID evaluation (vpsde_less_5 / vpsde_more_5, "
+        f"{args.train_steps} steps each; in a fresh process, which no profiler run of "
+        f"phase 5 slows)")
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, str(Path(__file__).resolve()), "--phase6-only",
+                           "--seed", str(args.seed), "--train-steps", str(args.train_steps)],
+                          timeout=900)
+    log(f"  phase 6: {time.perf_counter() - t0:.1f} s, exit code {proc.returncode}")
+    if proc.returncode != 0:
+        raise AssertionError(f"phase 6 failed (exit code {proc.returncode})")
 
     log(card)
     print(json.dumps({"kernels": [c.row(launches[n]) for n, c in checks.items()]}), flush=True)

@@ -4,12 +4,18 @@ NVIDIA Hopper (H100).
 The JAX package ``superdiff_tpu`` is the numerical reference; this package
 mirrors its structure and names:
 
-  core/       schedules, Itô estimators, kappa policies, the joint sampler
-  models/     the CIFAR ScoreUNet and its ensembles, the SD-1.x stack (UNet,
-              CLIP text, VAE decoder), the weight carrier from Flax trees
+  core/       schedules, Itô estimators, kappa policies, the joint sampler,
+              the DSM loss
+  models/     the CIFAR ScoreUNet and its ensembles, the toy MLP score net,
+              the SD-1.x stack (UNet, CLIP text, VAE), InceptionV3, the
+              weight and training-state carrier from Flax trees
   ops/        hand-written CUDA kernels for sm_90a, each beside its plain
               PyTorch version, built by nvcc at first use
-  pipelines/  end-to-end pipelines: sd, cifar (joint sampler)
+  train/      training state, Adam + warmup + EMA step, checkpoints
+  data/       image datasets with the reference's split DSL
+  eval/       FID / IS statistics and bits per dimension
+  utils/      metric logging, timing, image grids
+  pipelines/  end-to-end pipelines: sd, cifar (train, joint sampler, FID)
 
 Importing the package touches no CUDA: kernels are compiled and loaded
 inside the first call that launches them.

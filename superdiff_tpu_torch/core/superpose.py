@@ -262,3 +262,17 @@ def superpose(
     """
     return SuperposeSampler(score_fn, schedule, cfg, n_models)(
         x_init, noise=noise, generator=generator, capture=capture)
+
+
+def stack_score_fns(fns: Sequence[Callable[[torch.Tensor, torch.Tensor], torch.Tensor]]
+                    ) -> ScoreFn:
+    """A list of per-model score functions ``f(t, x) -> (B, *event)`` as one
+    stacked oracle ``(t, x) -> (N, B, *event)``: heterogeneous models (other
+    architectures, other inputs), one call each; same-architecture modules
+    go through ``models.ensemble.make_stacked_score_fn``."""
+    fns = list(fns)
+
+    def score_fn(t, x):
+        return torch.stack([f(t, x) for f in fns], dim=0)
+
+    return score_fn

@@ -106,3 +106,63 @@ def init_like_flax_(model: nn.Module, generator: torch.Generator | None = None):
         if name.endswith("position_embedding"):
             _normal_(p, 0.01, generator)
     return model
+
+
+def _adam_state(opt_state):
+    """optax's ``ScaleByAdamState`` (count, mu, nu), found in a nested
+    tuple of optimizer states."""
+    stack = [opt_state]
+    while stack:
+        node = stack.pop()
+        if {"count", "mu", "nu"} <= set(getattr(node, "_fields", ())):
+            return node
+        if isinstance(node, (tuple, list)):
+            stack.extend(node)
+    raise ValueError("no Adam state (count, mu, nu) in the optimizer state")
+
+
+@torch.no_grad()
+def train_state_from_jax(jax_state, state):
+    """Carry a JAX ``TrainState`` (``superdiff_tpu.train.TrainState`` after
+    ``jax.device_get``: numpy leaves, its optimizer state optax's
+    ``chain(clip, adam(schedule))``) into the port's ``state``
+    (``train.TrainState`` of the same model and optimizer spec), in place.
+
+    * ``params`` and ``params_ema`` through :func:`state_dict_from_flax`;
+    * Adam's ``mu`` / ``nu`` into each parameter's ``exp_avg`` /
+      ``exp_avg_sq``, with the same Flax -> torch transposes;
+    * Adam's ``count`` into the optimizer's ``step`` and the schedule's
+      step (and so the learning rate of the next update);
+    * ``step``, ``sampler_state`` (the fp32 cursor) and ``run_id``.
+
+    JAX's PRNG key (threefry) cannot be carried: the port's generator keeps
+    its own seeded state. Returns ``state``."""
+    names = [n for n, _ in state.model.named_parameters()]
+    params = state_dict_from_flax(jax_state.params)
+    ema = state_dict_from_flax(jax_state.params_ema)
+    if set(params) != set(names) or set(ema) != set(names):
+        raise KeyError("the JAX parameter tree does not match the port's model")
+    state.model.load_state_dict(params, strict=True)
+    for n in names:
+        state.params_ema[n].copy_(ema[n])
+    adam = _adam_state(jax_state.opt_state)
+    count = int(np.asarray(adam.count))
+    mu, nu = state_dict_from_flax(adam.mu), state_dict_from_flax(adam.nu)
+    for n, p in state.model.named_parameters():
+        state.optimizer.state[p] = {
+            "step": torch.tensor(float(count), dtype=torch.float32),
+            "exp_avg": mu[n].to(p.device, p.dtype).clone(),
+            "exp_avg_sq": nu[n].to(p.device, p.dtype).clone(),
+        }
+    lrs = [lam(count) * base for lam, base in zip(state.schedule.lr_lambdas,
+                                                  state.schedule.base_lrs)]
+    sd = state.schedule.state_dict()
+    sd.update(last_epoch=count, _step_count=count + 1, _last_lr=lrs)
+    state.schedule.load_state_dict(sd)
+    for group, lr in zip(state.optimizer.param_groups, lrs):
+        group["lr"] = lr
+    state.step = int(np.asarray(jax_state.step))
+    state.sampler_state = torch.tensor(np.asarray(jax_state.sampler_state, np.float32),
+                                       device=state.sampler_state.device)
+    state.run_id = int(jax_state.run_id)
+    return state

@@ -130,21 +130,44 @@ class _Conv(nn.Conv2d):
                         self.padding)
 
 
+class Dropout(nn.Module):
+    """Flax ``nn.Dropout``: in ``train()`` mode each element is kept with
+    probability ``1 - rate`` (a uniform draw below it) and the kept ones are
+    scaled by ``1 / (1 - rate)`` in the input's dtype; the identity at rate
+    0 and in ``eval()``. The masks come from ``generator`` (the caller's
+    explicit stream, as JAX's ``rngs={"dropout": key}``), or from the
+    default generator of the input's device when it is None."""
+
+    def __init__(self, rate: float):
+        super().__init__()
+        self.rate = rate
+
+    def forward(self, x: torch.Tensor, generator: Optional[torch.Generator] = None):
+        if not self.training or self.rate == 0.0:
+            return x
+        keep = 1.0 - self.rate
+        mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+        return torch.where(mask, x / keep, 0.0)
+
+
 class ResnetBlock(nn.Module):
-    def __init__(self, in_ch: int, out_ch: int, temb_ch: int, dtype=torch.float32):
+    def __init__(self, in_ch: int, out_ch: int, temb_ch: int, dtype=torch.float32,
+                 dropout: float = 0.1):
         super().__init__()
         # eps 1e-6: flax nn.GroupNorm's default, as the reference ScoreNet uses
         self.GroupNorm32_0 = GroupNorm32(in_ch, eps=1e-6)
         self.Conv_0 = _Conv(in_ch, out_ch, dtype)
         self.Dense_0 = _Dense(temb_ch, out_ch, dtype)
         self.GroupNorm32_1 = GroupNorm32(out_ch, eps=1e-6)
+        self.dropout = Dropout(dropout)
         self.Conv_1 = flax_zeros(_Conv(out_ch, out_ch, dtype))
         self.Dense_1 = _Dense(in_ch, out_ch, dtype) if in_ch != out_ch else None
 
-    def forward(self, x: torch.Tensor, temb: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, temb: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         h = self.Conv_0(F.silu(self.GroupNorm32_0(x)))
         h = h + self.Dense_0(F.silu(temb))[:, :, None, None]
-        h = self.Conv_1(F.silu(self.GroupNorm32_1(h)))
+        h = self.Conv_1(self.dropout(F.silu(self.GroupNorm32_1(h)), generator))
         if self.Dense_1 is not None:  # per-pixel shortcut on the NHWC view
             x = self.Dense_1(x.permute(0, 2, 3, 1)).permute(0, 3, 1, 2)
         return x + h
@@ -180,27 +203,31 @@ def _same_pad(n: int) -> tuple[int, int]:
 
 
 class Downsample(nn.Module):
-    """Stride-2 3x3 conv with Flax's ``"SAME"`` padding, which on an even
-    input pads 0 before and 1 after (not ``Conv2d(padding=1)``'s 1 and 1)."""
+    """With a conv: a stride-2 3x3 conv with Flax's ``"SAME"`` padding,
+    which on an even input pads 0 before and 1 after (not
+    ``Conv2d(padding=1)``'s 1 and 1). Without: a 2x2 average pool, stride 2."""
 
-    def __init__(self, ch: int, dtype=torch.float32):
+    def __init__(self, ch: int, dtype=torch.float32, with_conv: bool = True):
         super().__init__()
-        self.Conv_0 = _Conv(ch, ch, dtype, stride=2, padding=0)
+        self.Conv_0 = _Conv(ch, ch, dtype, stride=2, padding=0) if with_conv else None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.Conv_0 is None:
+            return F.avg_pool2d(x, 2, 2)
         (top, bottom), (left, right) = (_same_pad(n) for n in x.shape[2:])
         return self.Conv_0(F.pad(x, (left, right, top, bottom)))
 
 
 class Upsample(nn.Module):
-    """Nearest 2x, then a 3x3 conv."""
+    """Nearest 2x, then (``with_conv``) a 3x3 conv."""
 
-    def __init__(self, ch: int, dtype=torch.float32):
+    def __init__(self, ch: int, dtype=torch.float32, with_conv: bool = True):
         super().__init__()
-        self.Conv_0 = _Conv(ch, ch, dtype)
+        self.Conv_0 = _Conv(ch, ch, dtype) if with_conv else None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.Conv_0(F.interpolate(x, scale_factor=2, mode="nearest"))
+        x = F.interpolate(x, scale_factor=2, mode="nearest")
+        return x if self.Conv_0 is None else self.Conv_0(x)
 
 
 class ScoreUNet(nn.Module):
@@ -210,13 +237,15 @@ class ScoreUNet(nn.Module):
     NHWC, integer labels ``y`` (B,) when ``num_classes`` is set; returns fp32
     NHWC. ``image_size`` and ``in_channels`` fix at construction what the
     Flax module reads from its first input (where attention sits, the output
-    channels). The sampler's net only: the JAX module's training-time dropout
-    and its conv-free resampling option are not ported (no port path uses
-    them yet).
+    channels). ``dropout`` acts after each resnet block's second GroupNorm
+    and swish in ``train()`` mode, its masks drawn from ``forward``'s
+    ``generator``; ``resamp_with_conv=False`` resamples with a 2x2 average
+    pool down and a nearest 2x up, without their convs.
     """
 
     def __init__(self, nf: int = 128, ch_mult: Sequence[int] = (1, 2, 2, 2),
                  num_res_blocks: int = 2, attn_resolutions: Sequence[int] = (16, 8),
+                 dropout: float = 0.1, resamp_with_conv: bool = True,
                  num_classes: Optional[int] = None, dtype=torch.float32,
                  image_size: int = 32, in_channels: int = 3):
         super().__init__()
@@ -232,7 +261,7 @@ class ScoreUNet(nn.Module):
         self.Conv_0 = _Conv(in_channels, nf, dtype)
 
         def res_block(cin, cout):
-            return self._child("ResnetBlock", ResnetBlock(cin, cout, temb_ch, dtype))
+            return self._child("ResnetBlock", ResnetBlock(cin, cout, temb_ch, dtype, dropout))
 
         def attn_block(c):
             return self._child("AttnBlock", AttnBlock(c, dtype))
@@ -248,7 +277,7 @@ class ScoreUNet(nn.Module):
                 skips.append(ch)
             down = None
             if level != len(ch_mult) - 1:
-                down = self._child("Downsample", Downsample(ch, dtype))
+                down = self._child("Downsample", Downsample(ch, dtype, resamp_with_conv))
                 skips.append(ch)
                 res = math.ceil(res / 2)
             self._down.append((blocks, down))
@@ -262,7 +291,7 @@ class ScoreUNet(nn.Module):
             attn = attn_block(ch) if res in attn_resolutions else None
             up = None
             if level != 0:
-                up = self._child("Upsample", Upsample(ch, dtype))
+                up = self._child("Upsample", Upsample(ch, dtype, resamp_with_conv))
                 res *= 2
             self._up.append((blocks, attn, up))
         assert not skips
@@ -276,7 +305,8 @@ class ScoreUNet(nn.Module):
         self.add_module(f"{kind}_{i}", module)
         return f"{kind}_{i}"
 
-    def forward(self, t, x: torch.Tensor, y: Optional[torch.Tensor] = None) -> torch.Tensor:
+    def forward(self, t, x: torch.Tensor, y: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         dt = self.dtype
         t = torch.as_tensor(t, dtype=torch.float32, device=x.device)
         temb = self.Dense_0(timestep_embedding(t.reshape(-1), self.nf,
@@ -292,17 +322,17 @@ class ScoreUNet(nn.Module):
         hs = [self.Conv_0(h)]
         for blocks, down in self._down:
             for res, attn in blocks:
-                h = sub(res)(hs[-1], temb)
+                h = sub(res)(hs[-1], temb, generator)
                 if attn is not None:
                     h = sub(attn)(h)
                 hs.append(h)
             if down is not None:
                 hs.append(sub(down)(hs[-1]))
         res0, attn, res1 = self._mid
-        h = sub(res1)(sub(attn)(sub(res0)(hs[-1], temb)), temb)
+        h = sub(res1)(sub(attn)(sub(res0)(hs[-1], temb, generator)), temb, generator)
         for blocks, attn, up in self._up:
             for res in blocks:
-                h = sub(res)(torch.cat([h, hs.pop()], dim=1), temb)
+                h = sub(res)(torch.cat([h, hs.pop()], dim=1), temb, generator)
             if attn is not None:
                 h = sub(attn)(h)
             if up is not None:

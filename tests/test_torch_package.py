@@ -25,6 +25,9 @@ def test_import_pulls_in_no_jax_and_no_cuda():
         "import superdiff_tpu_torch, superdiff_tpu_torch.pipelines.sd\n"
         "import superdiff_tpu_torch.pipelines.cifar, superdiff_tpu_torch.ops.fused_step\n"
         "import superdiff_tpu_torch.ops.flash_attention, superdiff_tpu_torch.ops.geglu_ffn\n"
+        "import superdiff_tpu_torch.core.dsm, superdiff_tpu_torch.train, superdiff_tpu_torch.data\n"
+        "import superdiff_tpu_torch.eval, superdiff_tpu_torch.utils, superdiff_tpu_torch.models.mlp\n"
+        "import superdiff_tpu_torch.models.inception\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'flax', 'superdiff_tpu')]\n"
         "assert not bad, bad\n"
         "assert not torch.cuda.is_initialized()\n"
