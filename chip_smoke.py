@@ -138,6 +138,30 @@ Phases, in order; any failed check raises and the script exits non-zero:
    under torch.profiler 3 train steps (device time by family, idle share)
    and two recorded ``evaluate_joint_fid`` runs of 10 steps x 2 batches,
    whose ``fused_sde_step`` kernels on the device must be 20.
+7. SE(3) protein composition, in a fresh process (``--phase7-only``), after
+   phase 6: ``SE3Diffuser.default()`` (IGSO(3) tables of 1000 sigmas x 1000
+   omegas, 1000 series terms; its build seconds, and the 499 stepped t of
+   the 500-step schedule picking the same table rows on the card as on the
+   CPU); the reference pair, Proteus (model a) and FrameDiff at the
+   checkpoints' ``model_conf`` (``tests/fixtures``), and the CLI's pair,
+   ``IPAConfig.proteus_like()`` / ``framediff_like()``, every parameter
+   drawn non-zero from ``--seed`` (``protein_nets``: the update heads
+   scaled by 0.1); ``compose`` of the reference pair, fp32 with TF32 off,
+   ``OR`` at length 100, batch 1, num_t 500 uncut, then ``AND`` and
+   ``mixture`` for 20 steps at length 100 and ``OR`` for 20 steps at length
+   300 (cut: num_t 21): ms per step, wall and peak memory of each; every run
+   finite, unit quaternions within 1e-5, kappa in [0, 1] (OR, mixture;
+   AND's closed form is unbounded), atom37 (1, N, 37, 3), a PDB of N
+   residues, and no kernel of the port launched (every count 0). Card
+   against CPU on the same weights: one forward of each of the four nets at
+   length 64 within 1e-3 of the CPU's largest output, and a 10-step
+   ``compose`` of each pair on the same injected ``init_rigids`` and noise
+   within ``PROTEIN_TOL`` (translations over the largest translation, and
+   quaternions), while ``python -m superdiff_tpu_torch.cli protein --length
+   100 --num_t 20`` runs on the card in a process of its own (the IPA
+   pair): exit 0, one PDB, one JSON line. Then 5 ``OR`` steps at length 100
+   under torch.profiler (device time by family, idle share; the table in
+   ``chip_smoke_protein_profile.txt``).
 
 The line before the last is the kernel table as JSON, one row per TPU kernel:
 ``launches`` the launches over the run of the path the kernel serves, in
@@ -180,8 +204,16 @@ PEAK_BYTES = 3.35e12
 PEAK_EXP2 = 132 * 16 * 1.98e9
 
 
+_START = time.monotonic()
+
+
 def log(*a):
     print(*a, flush=True)
+
+
+def log_phase(title):
+    """A phase's header, with the seconds since the script started."""
+    log(f"{title} [{time.monotonic() - _START:.0f} s]")
 
 
 def time_ms(fn, budget_ms=300.0, most=50):
@@ -1061,10 +1093,11 @@ def counted_runs(what, run, steps, cycles=3, **calls):
     return got
 
 
-def profile_by_family(run, path, cycles=3):
+def profile_by_family(run, path, cycles=3, cpu=True):
     """Device time of ``run()`` by kernel family (torch.profiler); the table
     goes to ``path``. ``run()`` is recorded ``cycles`` times, each after an
-    unrecorded run while the tracer warms up. Returns ({family: ms}, wall ms
+    unrecorded run while the tracer warms up; ``cpu=False`` records the
+    card's activity alone, not the host's op events. Returns ({family: ms}, wall ms
     under the profiler) of the first recorded run, and {family: kernels
     launched}, the most any recorded run saw: the tracer loses a kernel
     record now and then (one ``fused_sde_step`` record of ten, in one of
@@ -1073,7 +1106,8 @@ def profile_by_family(run, path, cycles=3):
     from torch.profiler import ProfilerActivity, profile, schedule
 
     traced, walls = [], []
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+    acts = [ProfilerActivity.CPU] * cpu + [ProfilerActivity.CUDA]
+    with profile(activities=acts,
                  schedule=schedule(wait=0, warmup=1, active=1, repeat=cycles),
                  on_trace_ready=lambda p: traced.append(p.key_averages())) as prof:
         for _ in range(cycles):
@@ -2242,6 +2276,284 @@ def train_eval_phase(dev, args):
     shutil.rmtree(work)
 
 
+# card vs CPU over 10 composed steps: the largest translation difference over
+# the largest translation, and the largest quaternion difference. fp32 rounding
+# (cuBLAS against the CPU's sums) carried through 10 steps of two drawn nets:
+# 2.2e-4 / 2.5e-4 for the reference pair, 1.4e-6 / 3.6e-7 for the IPA pair
+# (measured on an H100 80GB HBM3 at 700 W), so 1e-3 leaves room for another
+# card's rounding.
+PROTEIN_TOL = 1e-3
+
+
+def scale_update_heads_(net, s=0.1):
+    """Scale the backbone-update heads of a drawn net, so that each block
+    moves the frames by a few angstroms rather than tens."""
+    import torch
+
+    with torch.no_grad():
+        for name, p in net.named_parameters():
+            if "bb_update" in name:
+                p.mul_(s)
+    return net
+
+
+def protein_nets(se3, dev, seed):
+    """The reference pair at the checkpoints' ``model_conf`` widths (the
+    schemas in ``tests/fixtures``), Proteus (model a) and FrameDiff (model
+    b), and the CLI's random-init pair, ``IPAConfig.proteus_like()`` and
+    ``framediff_like()``: every parameter drawn non-zero from ``seed``
+    (``draw_nonzero_``; a zero update head leaves each frame as it came in,
+    and the rotation score at an identity relative rotation is rounding),
+    the update heads scaled by 0.1. Eight input columns of Proteus's
+    template angle embedder get zero weights: the sin / cos of residue 0's
+    pre-omega and phi, whose frames are built with the absent previous
+    residue's atoms (zeros) and are degenerate, so their sign follows
+    rounding (the card and the CPU round them apart)."""
+    import torch
+
+    from superdiff_tpu_torch.models.protein import IPAConfig, IPAScoreNetwork
+    from superdiff_tpu_torch.models.protein.framediff import FrameDiffConfig, \
+        FrameDiffScoreNetwork
+    from superdiff_tpu_torch.models.protein.proteus import ProteusConfig, ProteusScoreNetwork
+
+    confs = {n: json.loads((ROOT / "tests" / "fixtures" / f"{n}_state_dict_schema.json")
+                           .read_text())["model_conf"] for n in ("proteus", "framediff")}
+    with torch.device(dev):
+        nets = {"Proteus": ProteusScoreNetwork(ProteusConfig.from_ckpt_conf(confs["proteus"])),
+                "FrameDiff": FrameDiffScoreNetwork(
+                    FrameDiffConfig.from_ckpt_conf(confs["framediff"]), score_calc=se3),
+                "IPA proteus_like": IPAScoreNetwork(IPAConfig.proteus_like(), se3),
+                "IPA framediff_like": IPAScoreNetwork(IPAConfig.framediff_like(), se3)}
+    for i, net in enumerate(nets.values()):
+        scale_update_heads_(draw_nonzero_(net, seed + i)).eval()
+    emb = nets["Proteus"].embedding_layer.template_embedder.template_angle_embedder
+    with torch.no_grad():
+        emb.linear_1.weight[:, [22, 23, 24, 25, 36, 37, 38, 39]] = 0.0
+    return nets
+
+
+def model_fns(a, b, se3):
+    """(model_a, model_b, sc_adapter_a) for ``compose``."""
+    from superdiff_tpu_torch import cli
+
+    if type(a).__name__ == "ProteusScoreNetwork":
+        model_a, adapter = cli.proteus_model_fn(a, se3)
+    else:
+        model_a, adapter = cli.net_model_fn(a), None
+    return model_a, cli.net_model_fn(b), adapter
+
+
+def on_cpu(net, cpu_se3):
+    """A CPU copy of ``net`` (the same parameters) scoring with ``cpu_se3``."""
+    import copy
+
+    cpu = copy.deepcopy(net).to("cpu")
+    for attr in ("se3_diffuser", "score_calc"):
+        if getattr(cpu, attr, None) is not None:
+            setattr(cpu, attr, cpu_se3)
+    return cpu
+
+
+def check_composition(what, out, n, operator):
+    """Every output of one ``compose`` run finite, unit quaternions, kappa in
+    [0, 1] where the operator bounds it (OR, mixture; AND's closed form does
+    not), atom37 (1, n, 37, 3), and a PDB of n residues."""
+    import torch
+
+    from superdiff_tpu_torch.models.protein import backbone
+
+    tr = out["traces"]
+    bad = [k for k, v in [("rigids", out["rigids"]), ("atom37", out["atom37"]), *tr.items()]
+           if not torch.isfinite(v).all()]
+    if bad:
+        raise AssertionError(f"{what}: not finite: {bad}")
+    qerr = (out["rigids"][..., :4].norm(dim=-1) - 1).abs().max().item()
+    if qerr > 1e-5:
+        raise AssertionError(f"{what}: quaternion norms off by {qerr:.3e}")
+    k = torch.stack([tr["kappa_trans"], tr["kappa_rots"]])
+    if operator != "AND" and not ((k >= 0) & (k <= 1)).all():
+        raise AssertionError(f"{what}: kappa out of [0, 1]: {k.min().item()} {k.max().item()}")
+    if out["atom37"].shape != (1, n, 37, 3):
+        raise AssertionError(f"{what}: atom37 {tuple(out['atom37'].shape)}")
+    pdb = backbone.to_pdb(out["atom37"][0])
+    if pdb.count(" CA ") != n:
+        raise AssertionError(f"{what}: the PDB holds {pdb.count(' CA ')} residues, want {n}")
+    log(f"  {what}: finite; max ||q| - 1| {qerr:.1e}; kappa_trans last "
+        f"{tr['kappa_trans'][-1, 0].item():.6f}, kappa over the run in [{k.min().item():.6f}, "
+        f"{k.max().item():.6f}]; ll_a / ll_b trans last {tr['ll_a_trans'][-1, 0].item():.3f} / "
+        f"{tr['ll_b_trans'][-1, 0].item():.3f}; atom37 {tuple(out['atom37'].shape)}; PDB of "
+        f"{n} residues")
+
+
+def timed_compose(what, run, steps):
+    """``run()`` once, synced (after the caller's warm-up): prints wall, ms
+    per step and the peak memory above what was held; returns the output."""
+    import torch
+
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = (torch.cuda.max_memory_allocated() - base) / 2**30
+    log(f"  {what}: {wall:.3f} s wall, {wall / steps * 1e3:.3f} ms per step over {steps} "
+        f"steps, peak {peak:.3f} GiB above the {base / 2**30:.3f} GiB held")
+    return out
+
+
+def card_against_cpu(nets, se3, cpu_se3, dev, seed):
+    """The four nets' forwards and a 10-step ``compose`` OR of each pair at
+    length 64, on the card and on the CPU with the same weights, inputs,
+    ``init_rigids`` and noise."""
+    import torch
+
+    from superdiff_tpu_torch import cli
+    from superdiff_tpu_torch.pipelines import protein
+
+    n = 64
+    g = torch.Generator(device=dev).manual_seed(seed)
+    r7 = se3.sample_ref(n, 1, generator=g)
+    feats = {"rigids_t": r7, "res_mask": torch.ones((1, n), device=dev),
+             "fixed_mask": torch.zeros((1, n), device=dev),
+             "t": torch.full((1,), 0.6, device=dev), "seq_idx": torch.arange(n, device=dev)[None],
+             "sc_ca_t": r7[..., 4:] + torch.randn((1, n, 3), generator=g, device=dev)}
+    cpu_nets = {k: on_cpu(v, cpu_se3) for k, v in nets.items()}
+    keys = {"Proteus": ("rigids", "final_atom_positions", "node_embed", "edge_embed"),
+            "FrameDiff": ("rigids", "psi", "rot_score", "trans_score")}
+    for name, net in nets.items():
+        f = cli.proteus_feats(feats) if name == "Proteus" else feats
+        with torch.no_grad():
+            got, ref = net(f), cpu_nets[name]({k: v.cpu() for k, v in f.items()})
+        errs = {k: ((got[k].cpu() - ref[k]).abs().max() / ref[k].abs().max()).item()
+                for k in keys.get(name, ("rigids", "psi", "rot_score", "trans_score"))}
+        log(f"  {name} forward, length {n}, card vs CPU (fp32, TF32 off): error over the "
+            f"CPU's largest output: " + ", ".join(f"{k} {v:.2e}" for k, v in errs.items()) +
+            " (tol 1e-3)")
+        if not max(errs.values()) <= 1e-3:
+            raise AssertionError(f"{name}: card vs CPU {errs}")
+    steps = 10
+    init = se3.sample_ref(n, 1, generator=g)
+    noise = torch.randn((steps, 1, n, 3), generator=g, device=dev)
+    cfg = protein.CompositionConfig(num_t=steps + 1)
+    for what, (a, b) in (("Proteus + FrameDiff", ("Proteus", "FrameDiff")),
+                         ("IPA pair", ("IPA proteus_like", "IPA framediff_like"))):
+        outs, secs = [], []
+        for ns, s3, target in ((nets, se3, dev), (cpu_nets, cpu_se3, "cpu")):
+            ma, mb, ad = model_fns(ns[a], ns[b], s3)
+            t0 = time.perf_counter()
+            outs.append(protein.compose(ma, mb, s3, n_res=n, cfg=cfg, sc_adapter_a=ad,
+                                        init_rigids=init.to(target), noise=noise.to(target)))
+            secs.append(time.perf_counter() - t0)
+        got, ref = outs[0], outs[1]
+        d_tr = (got["rigids"][..., 4:].cpu() - ref["rigids"][..., 4:]).abs().max().item()
+        d_q = (got["rigids"][..., :4].cpu() - ref["rigids"][..., :4]).abs().max().item()
+        d_k = (got["traces"]["kappa_trans"].cpu()
+               - ref["traces"]["kappa_trans"]).abs().max().item()
+        big = ref["rigids"][..., 4:].abs().max().item()
+        log(f"  compose OR, {what}, length {n}, {steps} steps, card vs CPU on the same "
+            f"init_rigids and noise: translations {d_tr:.3e} A (largest {big:.3f} A), "
+            f"quaternions {d_q:.3e}, kappa_trans {d_k:.3e} (tol {PROTEIN_TOL:g}); card "
+            f"{secs[0]:.1f} s, CPU {secs[1]:.1f} s (beside the CLI run)")
+        if not (d_tr <= PROTEIN_TOL * big and d_q <= PROTEIN_TOL):
+            raise AssertionError(f"{what}: card vs CPU over {steps} steps beyond tolerance")
+
+
+def protein_phase(dev, args):
+    """Phase 7: SE(3) protein composition (``pipelines.protein.compose``)."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from superdiff_tpu_torch.models.protein import SE3Diffuser
+    from superdiff_tpu_torch.pipelines import protein
+
+    log(f"  card: {card_line()}")
+    t0 = time.perf_counter()
+    se3 = SE3Diffuser.default(device=dev)
+    torch.cuda.synchronize()
+    log(f"  SE3Diffuser.default(): IGSO(3) tables {tuple(se3.so3.score_norm.shape)}, 1000 "
+        f"series terms, built on the host and moved to the card: "
+        f"{time.perf_counter() - t0:.2f} s")
+    cpu_se3 = se3.to("cpu")
+    ts = torch.tensor(np.linspace(0.002, 1.0, 500)[::-1][:-1].copy(), dtype=torch.float32)
+    if not torch.equal(se3.so3.t_to_idx(ts.to(dev)).cpu(), cpu_se3.so3.t_to_idx(ts)):
+        raise AssertionError("the card's IGSO(3) rows for the 500-step schedule differ from "
+                             "the CPU's")
+    log("  the 499 stepped t of the 500-step schedule pick the same IGSO(3) table rows on the "
+        "card as on the CPU")
+
+    t0 = time.perf_counter()
+    nets = protein_nets(se3, dev, args.seed)
+    log("  nets (drawn weights): " + ", ".join(
+        f"{k} {sum(p.numel() for p in v.parameters()) / 1e6:.3f} M parameters "
+        f"({len(v.state_dict())} tensors)" for k, v in nets.items()) +
+        f"; {time.perf_counter() - t0:.2f} s")
+    model_a, model_b, adapter = model_fns(nets["Proteus"], nets["FrameDiff"], se3)
+
+    def run(n, steps, **kw):
+        cfg = protein.CompositionConfig(num_t=steps + 1, **kw)
+        return protein.compose(model_a, model_b, se3, n_res=n, cfg=cfg, sc_adapter_a=adapter,
+                               seed=args.seed)
+
+    log_phase("  composed runs")
+    run(100, 2)  # warm-up
+    runs = [("OR, length 100, batch 1, num_t 500 (uncut)", 100, 499, {}, "OR"),
+            ("AND, length 100, 20 steps (num_t 21, cut from 500)", 100, 20,
+             dict(kappa_operator="AND"), "AND"),
+            ("mixture, length 100, 20 steps (num_t 21, cut from 500)", 100, 20,
+             dict(mixing_method="mixture"), "OR"),
+            ("OR, length 300, 20 steps (num_t 21, cut from 500)", 300, 20, {}, "OR")]
+    for what, n, steps, kw, op in runs:
+        if n == 300:
+            run(300, 1)  # warm-up at the new shapes
+        zero_counts()
+        out = timed_compose(f"Proteus + FrameDiff {what}", lambda: run(n, steps, **kw), steps)
+        expect_counts(f"protein {what}", read_counts())
+        check_composition(what, out, n, op)
+        del out
+    torch.cuda.empty_cache()
+
+    # the CLI on the card, in a process of its own beside the card-vs-CPU
+    # checks (they time nothing), and waited for before the profile
+    log_phase("  the CLI, beside the card against the CPU (length 64)")
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        proc = subprocess.Popen([sys.executable, "-m", "superdiff_tpu_torch.cli", "protein",
+                                 "--length", "100", "--num_t", "20", "--out_dir", tmp],
+                                cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                                text=True)
+        try:
+            card_against_cpu(nets, se3, cpu_se3, dev, args.seed)
+            stdout, stderr = proc.communicate(timeout=300)
+        finally:
+            proc.kill()
+            proc.wait()
+        wall = time.perf_counter() - t0
+        lines = [json.loads(x) for x in stdout.splitlines() if x.startswith("{")]
+        pdbs = sorted(Path(tmp).glob("*.pdb"))
+    log(f"  python -m superdiff_tpu_torch.cli protein --length 100 --num_t 20 (the IPA pair, "
+        f"Flax-distribution random init): exit {proc.returncode} in {wall:.1f} s; "
+        f"{len(pdbs)} PDB, {len(lines)} JSON line(s): {lines}")
+    if proc.returncode != 0 or len(pdbs) != 1 or len(lines) != 1:
+        raise AssertionError(f"the protein CLI failed: {stderr[-2000:]}")
+    torch.cuda.empty_cache()
+
+    # profiled after every timing: a torch.profiler run slows later launches
+    log_phase("  profile")
+    fams, wall, _ = profile_by_family(lambda: run(100, 5),
+                                      OUT / "chip_smoke_protein_profile.txt", cycles=1,
+                                      cpu=False)
+    total = sum(fams.values())
+    log(f"  profile (Proteus + FrameDiff OR, length 100, 5 steps): {total / 5:.3f} ms device "
+        f"time per step, {wall / 5:.3f} ms wall per step under the profiler (device idle "
+        f"{1 - total / wall:.3f}); by family (ms per step): " + ", ".join(
+            f"{k} {v / 5:.4f}" for k, v in sorted(fams.items(), key=lambda kv: -kv[1])))
+    log_phase("  phase 7 done")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--steps", type=int, default=4)
@@ -2250,6 +2562,8 @@ def main(argv=None) -> int:
     ap.add_argument("--train-steps", type=int, default=30)
     ap.add_argument("--phase6-only", action="store_true",
                     help="run phase 6 alone (main() starts it so, in a fresh process)")
+    ap.add_argument("--phase7-only", action="store_true",
+                    help="run phase 7 alone (main() starts it so, in a fresh process)")
     args = ap.parse_args(argv)
 
     import torch
@@ -2267,21 +2581,23 @@ def main(argv=None) -> int:
               file=sys.stderr)
         return 2
     dev = torch.device("cuda", 0)
+    OUT.mkdir(exist_ok=True)  # every phase, also one run alone, writes its tables there
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     if args.phase6_only:
         train_eval_phase(dev, args)
         return 0
+    if args.phase7_only:
+        protein_phase(dev, args)
+        return 0
     card = card_line()
     log(f"torch {torch.__version__} cuda {torch.version.cuda}; {torch.cuda.get_device_name(0)}")
 
-    log("phase 1: build")
+    log_phase("phase 1: build")
     t0 = time.perf_counter()
     outputs = _build.build_all()
     log(f"  nvcc builds: {time.perf_counter() - t0:.2f} s ({', '.join(outputs)})")
-    out_dir = OUT
-    out_dir.mkdir(exist_ok=True)
-    (out_dir / "chip_smoke_build.txt").write_text(
+    (OUT / "chip_smoke_build.txt").write_text(
         "".join(f"== {n}\n{o}\n" for n, o in outputs.items()))
     for n, o in outputs.items():
         for line in o.splitlines():
@@ -2301,14 +2617,14 @@ def main(argv=None) -> int:
                                  f"({facts['geglu_ffn']})")
     log(f"  card: {card}")
 
-    log("phase 2: kernels vs their plain versions")
+    log_phase("phase 2: kernels vs their plain versions")
     checks = {"sd_or_step": check_sd_or_step(dev), "flash_mha_eod": check_flash(dev),
               "geglu_ffn_block": check_geglu(dev), "fused_sde_step": check_fused_sde_step(dev)}
     checks.update(check_bhld(dev))
     checks.update(check_packed(dev))
     torch.cuda.empty_cache()
 
-    log(f"phase 3: main path (SD-1.x, or, 512 px, latent batch 8, {args.steps} steps)")
+    log_phase(f"phase 3: main path (SD-1.x, or, 512 px, latent batch 8, {args.steps} steps)")
     t0 = time.perf_counter()
     mod = sd.build_sd_modules(args.seed, device=dev, dtype=torch.bfloat16)
     torch.cuda.synchronize()
@@ -2349,20 +2665,20 @@ def main(argv=None) -> int:
     generate_in_turns(sd, mod, args.seed, 50)
     torch.cuda.empty_cache()
 
-    log("phase 3b: SD-1.x, or, 768 px, latent batch 8, 2 steps")
+    log_phase("phase 3b: SD-1.x, or, 768 px, latent batch 8, 2 steps")
     sd_768_phase(sd, mod, args, dev)
 
-    log("phase 3c: SD-1.x, or, 512 px under attn_impl flash_eo / flash and every _LONG_IMPL")
+    log_phase("phase 3c: SD-1.x, or, 512 px under attn_impl flash_eo / flash and every _LONG_IMPL")
     launches = sd_attn_impl_phase(sd, mod, args, dev)
 
-    log("phase 3d: the other methods at 512 px")
+    log_phase("phase 3d: the other methods at 512 px")
     sd_methods_phase(sd, mod, args, dev)
     torch.cuda.empty_cache()
 
-    log("phase 3e: the packed-layout paths (flash_nat, _CROSS_IMPL xpk / nat)")
+    log_phase("phase 3e: the packed-layout paths (flash_nat, _CROSS_IMPL xpk / nat)")
     launches.update(sd_packed_phase(sd, mod, args, dev))
 
-    log(f"phase 4: CIFAR joint sampler (vpsdeA, 2 models, batch 100, sde/or, "
+    log_phase(f"phase 4: CIFAR joint sampler (vpsdeA, 2 models, batch 100, sde/or, "
         f"{args.cifar_steps} steps)")
     zero_counts()
     models, cifar_cfg, labels = cifar_phase(dev, args)
@@ -2370,7 +2686,7 @@ def main(argv=None) -> int:
     if others:
         raise AssertionError(f"the CIFAR path launched SD kernels: {others}")
 
-    log("phase 5: launches on the device, profiles and CPU references")
+    log_phase("phase 5: launches on the device, profiles and CPU references")
     geglu_launches_only(dev)
     step_kernels_launch_once(dev)
     # the main path's launches: generate as a user's first call runs it
@@ -2402,7 +2718,7 @@ def main(argv=None) -> int:
     del models
     torch.cuda.empty_cache()
 
-    log(f"phase 6: CIFAR training and FID evaluation (vpsde_less_5 / vpsde_more_5, "
+    log_phase(f"phase 6: CIFAR training and FID evaluation (vpsde_less_5 / vpsde_more_5, "
         f"{args.train_steps} steps each; in a fresh process, which no profiler run of "
         f"phase 5 slows)")
     t0 = time.perf_counter()
@@ -2412,6 +2728,15 @@ def main(argv=None) -> int:
     log(f"  phase 6: {time.perf_counter() - t0:.1f} s, exit code {proc.returncode}")
     if proc.returncode != 0:
         raise AssertionError(f"phase 6 failed (exit code {proc.returncode})")
+
+    log_phase("phase 7: SE(3) protein composition (Proteus + FrameDiff at the checkpoints' widths; "
+        "in a fresh process, which no profiler run of phase 5 slows)")
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, str(Path(__file__).resolve()), "--phase7-only",
+                           "--seed", str(args.seed)], timeout=600)
+    log(f"  phase 7: {time.perf_counter() - t0:.1f} s, exit code {proc.returncode}")
+    if proc.returncode != 0:
+        raise AssertionError(f"phase 7 failed (exit code {proc.returncode})")
 
     log(card)
     print(json.dumps({"kernels": [c.row(launches[n]) for n, c in checks.items()]}), flush=True)

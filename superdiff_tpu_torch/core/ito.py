@@ -1,5 +1,6 @@
 """Itô density estimators (port of ``superdiff_tpu/core/ito.py``: the
-sigma-space forms of the SD stack, the VP forms of the CIFAR stack).
+sigma-space forms of the SD stack, the VP forms of the CIFAR stack, the R^3
+and driftless forms of the SE(3) protein stack).
 
 Along the reverse trajectory ``x + dx`` each model (or conditioning) i
 defines a marginal density ``q_i``; these estimators give the running change
@@ -42,6 +43,30 @@ def dlogq_sde_sigma_space_or(vels, dx, sigma, dsigma):
     """
     out = -_fsum(vels * (dx[None] + dsigma * vels), _event_dims(vels)) / sigma
     return out.T
+
+
+def dlogq_sde_r3(scores, x, dx, f_x, beta_t, dlog_alpha_dt, dt):
+    """Divergence-free ``dlog q_i`` for a generic Euclidean reverse SDE (the
+    protein translation component):
+
+      dll_i = ndim dt dlog_alpha_dt + sum(-dt beta s_i^2 + (dx + dt f_x) s_i)
+
+    scores (N, B, *event), x / dx / f_x (B, *event); returns (B, N).
+    """
+    ndim = 1
+    for n in x.shape[1:]:
+        ndim *= n
+    per = -dt * beta_t * scores**2 + (dx + dt * f_x)[None] * scores
+    return (_fsum(per, _event_dims(per)) + ndim * dt * dlog_alpha_dt).T
+
+
+def dlogq_sde_driftless(scores, dx, beta_t, dt):
+    """Divergence-free ``dlog q_i`` for a driftless (e.g. SO(3)) reverse SDE:
+    ``dll_i = sum(-dt beta s_i^2 + dx s_i)``. scores (N, B, *event), dx
+    (B, *event); returns (B, N).
+    """
+    per = -dt * beta_t * scores**2 + dx[None] * scores
+    return _fsum(per, _event_dims(per)).T
 
 
 def rademacher(shape, generator: Optional[torch.Generator] = None,

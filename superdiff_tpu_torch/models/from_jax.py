@@ -11,11 +11,14 @@ mechanical: a Flax path ``down_0_res_0/conv1/kernel`` becomes the
 * ``GroupNorm_0/{scale,bias}`` -> the GroupNorm32 module's ``weight``/``bias``,
   LayerNorm ``scale`` -> ``weight``, ``Embed`` ``embedding`` -> ``weight``.
 
-One carrier serves both model families: the SD-1.x stack (UNet, CLIP text
-encoder, VAE) and the CIFAR ``ScoreUNet``, whose children carry Flax's
-auto-names (``ResnetBlock_3/Conv_1``). For SD, ``models/sd/convert.py`` maps
-diffusers safetensors keys onto these Flax paths and chains each one through
-:func:`flax_leaf_to_torch`.
+One carrier serves the SD-1.x stack (UNet, CLIP text encoder, VAE), the
+CIFAR ``ScoreUNet``, whose children carry Flax's auto-names
+(``ResnetBlock_3/Conv_1``), and the protein ``IPAScoreNetwork``. The
+checkpoint-faithful ``FrameDiffScoreNetwork`` and ``ProteusScoreNetwork``
+carry the reference's names instead: :func:`protein_net_from_flax` maps
+their Flax paths through ``models/protein/convert.py``. For SD,
+``models/sd/convert.py`` maps diffusers safetensors keys onto these Flax
+paths and chains each one through :func:`flax_leaf_to_torch`.
 """
 
 from __future__ import annotations
@@ -62,6 +65,40 @@ def flax_leaf_to_torch(path: str, a: np.ndarray) -> tuple[str, torch.Tensor]:
 def state_dict_from_flax(params: Mapping) -> dict[str, torch.Tensor]:
     """Nested dict of numpy arrays (a Flax ``params`` tree) -> torch state_dict."""
     return dict(flax_leaf_to_torch(path, a) for path, a in _flatten(params))
+
+
+def protein_net_from_flax(net: nn.Module, params: Mapping) -> nn.Module:
+    """Load the Flax ``params`` tree of a JAX protein score network into the
+    port's ``net`` of the same config, in place; returns ``net``.
+
+    ``IPAScoreNetwork`` carries the Flax names (the generic carrier);
+    ``FrameDiffScoreNetwork`` / ``ProteusScoreNetwork`` take each Flax
+    leaf to its reference key through the converter's mapping. The keys the
+    reference forward never uses (``linear_rbf``, ``torsion_pred.linear_3``,
+    the local triangle attention's ``pair_transition``) have no Flax
+    counterpart and keep their values; every other key must be covered."""
+    from .protein import convert
+    from .protein.framediff import FrameDiffScoreNetwork
+    from .protein.proteus import ProteusScoreNetwork
+
+    if isinstance(net, (FrameDiffScoreNetwork, ProteusScoreNetwork)):
+        if isinstance(net, FrameDiffScoreNetwork):
+            mapping = convert.framediff_mapping(net.cfg)
+            unused = convert.framediff_unused_keys(net.cfg)
+        else:
+            mapping = convert.proteus_mapping(net.cfg)
+            unused = convert.proteus_unused_keys(net.cfg)
+        leaves = dict(_flatten(params))
+        sd = {key: torch.tensor(leaves[path].T if tf == "T" else leaves[path])
+              for key, path, tf in mapping}
+        missing, unexpected = net.load_state_dict(sd, strict=False)
+        if set(missing) != set(unused) or unexpected:
+            raise KeyError(f"Flax tree does not cover the network: missing "
+                           f"{sorted(set(missing) - set(unused))[:5]}, unexpected "
+                           f"{unexpected[:5]}")
+    else:
+        net.load_state_dict(state_dict_from_flax(params), strict=True)
+    return net
 
 
 def flax_zeros(layer: nn.Module) -> nn.Module:

@@ -1,5 +1,6 @@
-"""End-to-end pipelines: the SD-1.x composition and the CIFAR joint sampler."""
+"""End-to-end pipelines: the SD-1.x composition, the CIFAR experiment and
+the SE(3) protein composition."""
 
-from . import cifar, sd
+from . import cifar, protein, sd
 
-__all__ = ["cifar", "sd"]
+__all__ = ["cifar", "protein", "sd"]

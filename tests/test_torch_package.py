@@ -27,7 +27,9 @@ def test_import_pulls_in_no_jax_and_no_cuda():
         "import superdiff_tpu_torch.ops.flash_attention, superdiff_tpu_torch.ops.geglu_ffn\n"
         "import superdiff_tpu_torch.core.dsm, superdiff_tpu_torch.train, superdiff_tpu_torch.data\n"
         "import superdiff_tpu_torch.eval, superdiff_tpu_torch.utils, superdiff_tpu_torch.models.mlp\n"
-        "import superdiff_tpu_torch.models.inception\n"
+        "import superdiff_tpu_torch.models.inception, superdiff_tpu_torch.pipelines.protein\n"
+        "import superdiff_tpu_torch.models.protein.proteus, superdiff_tpu_torch.cli\n"
+        "import superdiff_tpu_torch.models.protein.convert\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'flax', 'superdiff_tpu')]\n"
         "assert not bad, bad\n"
         "assert not torch.cuda.is_initialized()\n"
@@ -44,6 +46,23 @@ def test_no_file_imports_jax_flax_or_the_jax_package():
              + sorted((REPO / "scripts").glob("torch_*.py")))
     offenders = [str(f.relative_to(REPO)) for f in files if pattern.search(f.read_text())]
     assert not offenders
+
+
+def test_protein_entry_points_default_to_the_card():
+    """``SE3Diffuser.default()`` (so ``compose``, whose device is its
+    diffuser's) and the protein CLI run on ``cuda`` unless told otherwise:
+    without a card they raise instead of running on the CPU."""
+    import torch
+
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the defaults would run")
+    proc = _run("from superdiff_tpu_torch.models.protein import SE3Diffuser\n"
+                "SE3Diffuser.default()\n")
+    assert proc.returncode != 0 and "CUDA" in proc.stderr
+    proc = _run("from superdiff_tpu_torch import cli\n"
+                "cli.main(['protein', '--length', '4', '--num_t', '2', '--out_dir', "
+                "'/nonexistent/protein'])\n")
+    assert proc.returncode != 0 and "CUDA" in proc.stderr
 
 
 def test_build_without_nvcc_raises(monkeypatch, tmp_path):

@@ -5,8 +5,9 @@
 family's kernels: the JAX side runs its Pallas kernels in interpret mode,
 the port their plain versions), 256- and 64-token rows below it and 77-token
 cross-attention everywhere. ``flash_nat`` (every row to the packed
-``_kernel_mh_nat``) is held in ``test_torch_sd_unet_nat.py``, which keeps
-each file under a minute; the tiny UNet never reaches
+``_kernel_mh_nat``) is held in ``test_torch_sd_unet_nat.py`` and the plain
+``einsum`` and ``dpa`` in ``test_torch_sd_unet_plain.py``, which keeps each
+file under a minute; the tiny UNet never reaches
 ``_kernel_cross_packed`` (its rows are too short): ``test_torch_flash_packed.py``
 holds a ``TransformerBlock`` under that lever. fp32 tolerance: 1e-5 relative
 to the output's largest magnitude, as ``test_torch_sd_unet.py``.
@@ -14,6 +15,7 @@ to the output's largest magnitude, as ``test_torch_sd_unet.py``.
 
 import dataclasses
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -28,8 +30,8 @@ from superdiff_tpu_torch.models.sd.unet import ATTN_IMPLS, SDUNet, SDUNetConfig
 torch.set_num_threads(1)
 
 
-# flash_nat: test_torch_sd_unet_nat.py
-IMPLS = [impl for impl in ATTN_IMPLS if impl != "flash_nat"]
+# flash_nat: test_torch_sd_unet_nat.py; einsum and dpa: test_torch_sd_unet_plain.py
+IMPLS = [impl for impl in ATTN_IMPLS if impl.startswith("flash") and impl != "flash_nat"]
 
 
 @pytest.fixture(scope="module")
@@ -41,6 +43,11 @@ def params():
 
 @pytest.mark.parametrize("attn_impl", IMPLS)
 def test_unet_matches_jax_under_attn_impl(params, attn_impl):
+    check_unet_under_attn_impl(params, attn_impl)
+
+
+def check_unet_under_attn_impl(params, attn_impl):
+    """One forward of both UNets under ``attn_impl`` on the same inputs."""
     jcfg = dataclasses.replace(JaxSDUNetConfig.tiny(), attn_impl=attn_impl, ffn_impl="einsum")
     jnet = JaxSDUNet(jcfg, dtype=jnp.float32)
     net = carry(SDUNet(dataclasses.replace(SDUNetConfig.tiny(), attn_impl=attn_impl),
@@ -48,7 +55,9 @@ def test_unet_matches_jax_under_attn_impl(params, attn_impl):
     rng = np.random.default_rng(3)
     x = rng.standard_normal((1, 32, 32, 4)).astype(np.float32)
     ctx = rng.standard_normal((3, 77, 64)).astype(np.float32)
-    ref = np.asarray(jnet.apply({"params": params}, x, np.float32(481.0), ctx))
+    # jitted: op by op, a file's first JAX forward compiles every primitive
+    # (half a minute on the CPU with the Pallas kernels in interpret mode)
+    ref = np.asarray(jax.jit(jnet.apply)({"params": params}, x, np.float32(481.0), ctx))
     with torch.no_grad():
         got = net(t(x), torch.tensor(481.0), t(ctx)).numpy()
     assert got.shape == ref.shape == (3, 32, 32, 4)

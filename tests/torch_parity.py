@@ -4,6 +4,8 @@ The JAX side keeps to the CPU (tests/conftest.py); arrays cross between the
 two frameworks as numpy.
 """
 
+import dataclasses
+
 import jax
 import numpy as np
 import torch
@@ -32,6 +34,15 @@ def carry(torch_module, params):
     """Load a Flax params tree into ``torch_module`` (strict); returns it."""
     torch_module.load_state_dict(state_dict_from_flax(params), strict=True)
     return torch_module.eval()
+
+
+def same_config(port_cfg, jax_cfg, unread=()):
+    """The port's config holds the JAX config's fields at its values, less
+    ``unread``: JAX's fields that no code of either package reads (or that
+    only JAX's struct2seq reads), which the port does not carry."""
+    p, j = dataclasses.asdict(port_cfg), dataclasses.asdict(jax_cfg)
+    assert set(j) - set(p) == set(unread) and set(p) <= set(j), set(p) ^ set(j)
+    assert p == {k: j[k] for k in p}
 
 
 def t(a):
