@@ -2,6 +2,7 @@
 """Chip smoke run of ``superdiff_tpu_torch`` on one NVIDIA GPU (H100, sm_90a).
 
     python3 chip_smoke.py [--steps 4] [--seed 0] [--cifar-steps 200]
+    python3 chip_smoke.py --phase8-only   # phase 8 alone (so --phase6-only, --phase7-only)
 
 Phases, in order; any failed check raises and the script exits non-zero:
 
@@ -25,10 +26,17 @@ Phases, in order; any failed check raises and the script exits non-zero:
    The d-major kernel is held both to the plain version that rounds as
    pvtd does (``_plain_1block(sum="bf16")`` on the transposed views) and to
    the fp32 ``_reference_eod``.
+   The FFN kernel in its four configurations (``GEGLU_CONFIGS``): the SD
+   block (LN + residual, the exact-erf polynomial) at the 512 and 768 px
+   shapes, and the block with the tanh gelu and the unfused ``geglu_ffn``
+   with either gelu at a tiny shape and the four 512 px shapes (no served
+   path calls these three: their ``launches``, each configuration's own
+   count over the main path's run, are 0).
    Time the kernel, the plain version and, where one exists, the single
-   PyTorch call computing the same function (for ``geglu_ffn_block`` the
-   composed ``ffn_library``: LayerNorm, two cuBLAS GEMMs, GEGLU and residual
-   as plain ops, timed as one function); work out the bound. Every row
+   PyTorch call computing the same function (for the FFN the composed
+   ``ffn_library``: LayerNorm, two cuBLAS GEMMs, GEGLU and residual as
+   plain ops, the unfused entry without LayerNorm and residual, timed as
+   one function); work out the bound. Every row
    also gives its device time alone (launches captured in a CUDA graph and
    replayed) and the wrapper's host cost (host clock over launches without
    a synchronise). The step epilogues ``sd_or_step`` ((3, 4100), (8, 16384),
@@ -104,8 +112,9 @@ Phases, in order; any failed check raises and the script exits non-zero:
    captured call (step 0 eagerly, the capture, the rest replayed), each
    recorded three times under torch.profiler with every count zeroed just
    before and read just after (the wrappers: 2 per per-step call): the
-   kernels each wrapper's family ran on the device, the most any recorded
-   run saw, must be its calls per step times the steps. One captured 512 px SD
+   kernels each wrapper's family ran on the device (the records that
+   started inside the recorded run), the most any recorded run saw, must
+   be its calls per step times the steps. One captured 512 px SD
    sampler run, one captured 768 px and one 1024 px step and 10 captured
    CIFAR SDE/OR steps (graphs built before) are traced with torch.profiler
    (three recorded runs each, after warm-ups): device time by kernel family,
@@ -162,6 +171,29 @@ Phases, in order; any failed check raises and the script exits non-zero:
    pair): exit 0, one PDB, one JSON line. Then 5 ``OR`` steps at length 100
    under torch.profiler (device time by family, idle share; the table in
    ``chip_smoke_protein_profile.txt``).
+
+8. struct2seq-conditioned composition, SE(3) training and the ``cifar`` /
+   ``sd`` commands, in a fresh process (``--phase8-only``), after phase 7.
+   Proteus at the reference checkpoint's ``model_conf`` with its struct2seq
+   section enabled (c_s 256, c_z 128, seq_nums 4) and the MPNN + ESM
+   conditioner at full width (ProteinMPNN 128 wide, 3 + 3 layers, k 48;
+   ESM2 esm2_t33_650M, 33 x 1280, 20 heads), FrameDiff at its checkpoint's,
+   drawn weights, fp32, TF32 off: the conditioner on the card against the
+   CPU on the same injected draws (teacher-forced MPNN log-probs, ESM2
+   representations and attentions, ``esm_s`` / ``esm_p``) within
+   ``STRUCT2SEQ_TOL``; ``compose`` OR over 20 steps at length 100, batch 1,
+   ``esm_rate`` 0.2: the branch runs on the steps the gate names (0, 6, 13)
+   and no other, every check of phase 7's composed runs, no kernel of the
+   port; the ms of a struct2seq step and of a plain step, peak memory.
+   ``FrameDiffScoreNetwork`` at ``FrameDiffConfig()`` (17 M parameters)
+   trained 20 steps (``make_se3_dsm_loss``, Adam lr 1e-4, warmup 100, EMA
+   0.999, batch 8, length 128) on a synthetic helix family written as PDB
+   files and read back by ``ProteinDataset``: loss finite, parameters and
+   EMA moved; ms per step, peak memory, the idle share over 3 profiled
+   steps (``chip_smoke_se3_train_profile.txt``). ``cli sd --preset tiny``
+   (2 steps) and ``cli cifar`` at a tiny config (4 train steps, then
+   ``fid_stats`` of a 300-image CIFAR-10 stand-in with seed-drawn
+   Inception weights), on the card, each writing its outputs.
 
 The line before the last is the kernel table as JSON, one row per TPU kernel:
 ``launches`` the launches over the run of the path the kernel serves, in
@@ -276,24 +308,30 @@ def host_ms(fn, n=50):
     return ms
 
 
+def cuobjdump_tool():
+    """The path of ``cuobjdump`` (CUDA's, else triton's copy), or None."""
+    import shutil
+
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if Path(tool).exists():
+        return tool
+    try:
+        import triton
+    except ImportError:
+        return None
+    tool = Path(triton.__file__).parent / "backends" / "nvidia" / "bin" / "cuobjdump"
+    return str(tool) if tool.exists() else None
+
+
 def sass_facts(names=("flash_attention", "flash_attention_bhld", "geglu_ffn")):
     """Counts of wgmma (HGMMA), TMA (UTMALDG / UTMASTG) and mma.sync (HMMA)
     instructions in the built attention and FFN libraries, from ``cuobjdump
     -sass``; None where no cuobjdump is installed."""
-    import shutil
-
     from superdiff_tpu_torch.ops import _build
 
-    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
-    if not Path(tool).exists():
-        try:
-            import triton
-
-            tool = str(Path(triton.__file__).parent / "backends" / "nvidia" / "bin" / "cuobjdump")
-        except ImportError:
-            return None
-        if not Path(tool).exists():
-            return None
+    tool = cuobjdump_tool()
+    if tool is None:
+        return None
     facts = {}
     for n in names:
         sass = subprocess.run([tool, "-sass", str(_build._target(n))], capture_output=True,
@@ -723,64 +761,89 @@ def check_packed(dev):
     return checks
 
 
-def ffn_library(x, gamma, beta, w1, b1, w2, b2, eps):
-    """The FFN sub-block as PyTorch calls (cuBLAS GEMMs, plain GEGLU and
-    residual): ``geglu_ffn_block``'s library yardstick, timed as a whole and
+def ffn_library(x, gamma, beta, w1, b1, w2, b2, eps, approximate=False, fused=True):
+    """The FFN as PyTorch calls (cuBLAS GEMMs, plain GEGLU, and for the
+    block LayerNorm and residual): the library yardstick of
+    ``geglu_ffn_block`` (``fused``) and ``geglu_ffn``, timed as a whole and
     used nowhere in the port."""
     import torch
     import torch.nn.functional as F
 
-    xn = F.layer_norm(x.float(), x.shape[-1:], gamma.float(), beta.float(), eps).to(x.dtype)
+    xn = (F.layer_norm(x.float(), x.shape[-1:], gamma.float(), beta.float(), eps).to(x.dtype)
+          if fused else x)
     v, g = torch.addmm(b1.to(x.dtype), xn, w1.t()).chunk(2, dim=-1)
-    h = (v * F.gelu(g.float())).to(x.dtype)
-    return torch.addmm(b2.to(x.dtype), h, w2.t()) + x
+    h = (v * F.gelu(g.float(), approximate="tanh" if approximate else "none")).to(x.dtype)
+    out = torch.addmm(b2.to(x.dtype), h, w2.t())
+    return out + x if fused else out
+
+
+# the FFN kernel's four configurations: (row name, LN + residual, tanh gelu);
+# SD runs the first, no served path the other three
+GEGLU_CONFIGS = (("geglu_ffn_block", True, False), ("geglu_ffn_block[tanh]", True, True),
+                 ("geglu_ffn[erf]", False, False), ("geglu_ffn[tanh]", False, True))
 
 
 def check_geglu(dev):
+    """Every configuration of the FFN kernel against its plain version: the
+    SD block (exact-erf polynomial, LN + residual) at the 512 and 768 px
+    shapes, the other three at a tiny shape and the four 512 px ones."""
     import torch
 
     from superdiff_tpu_torch.ops import geglu_ffn as m
 
-    c = Check("geglu_ffn_block", "superdiff_tpu_torch/ops/csrc/geglu_ffn.cu",
-              "superdiff_tpu/ops/pallas/geglu_ffn.py:114", "operations")
     # the last four: the 768 px rows (9216, 2304, 576 and 144 tokens at batch 24)
-    shapes = (((192, 64), 0), ((24 * 4096, 320), 5), ((24 * 1024, 640), 5),
-              ((24 * 256, 1280), 5), ((24 * 64, 1280), 1),
-              ((24 * 9216, 320), 0), ((24 * 2304, 640), 0), ((24 * 576, 1280), 0),
-              ((24 * 144, 1280), 0))
-    for (mm, cc), per_step in shapes:
-        f = 4 * cc
-        g = torch.Generator(device=dev).manual_seed(cc)
-        rnd = lambda *s: torch.randn(*s, device=dev, generator=g)
-        bf = torch.bfloat16
-        x = rnd(mm, cc).to(bf)
-        gamma, beta = 1 + 0.1 * rnd(cc), 0.1 * rnd(cc)
-        w1 = (rnd(2 * f, cc) / cc**0.5).to(bf)
-        b1 = (0.1 * rnd(2 * f)).to(bf)
-        w2 = (rnd(cc, f) / f**0.5).to(bf)
-        b2 = (0.1 * rnd(cc)).to(bf)
-        args = (x, gamma, beta, w1, b1, w2, b2)
-        got = m.geglu_ffn_block(*args)
-        # the plain version in fp32 on the same (bf16-valued) inputs; the
-        # kernel rounds LN(x), the hidden h and its output to bf16 as the TPU
-        # kernel does: bf16-level error against the largest output magnitude
-        ref = m._reference_block(*(a.float() for a in args))
-        torch.cuda.synchronize()
-        err = (got.float() - ref).abs().max().item()
-        scale = ref.abs().max().item()
-        tol = 2e-2 * scale
-        run = lambda: m.geglu_ffn_block(*args)
-        ms = time_ms(run)
-        split = (graph_ms(run), host_ms(run))
-        plain = time_ms(lambda: m._reference_block(*args))
-        lib = graph_ms(lambda: ffn_library(*args, 1e-5))
-        ops = 6 * mm * cc * f / PEAK_BF16
-        nbytes = (2 * mm * cc + 3 * f * cc) * 2 / PEAK_BYTES
-        c.add((mm, cc), err, scale, tol, ms, plain, max(ops, nbytes) * 1e3, lib, per_step,
-              split)
-        del x, w1, w2, got, ref
-        torch.cuda.empty_cache()
-    return c
+    sd_shapes = (((192, 64), 0), ((24 * 4096, 320), 5), ((24 * 1024, 640), 5),
+                 ((24 * 256, 1280), 5), ((24 * 64, 1280), 1),
+                 ((24 * 9216, 320), 0), ((24 * 2304, 640), 0), ((24 * 576, 1280), 0),
+                 ((24 * 144, 1280), 0))
+    checks = {}
+    for name, fused, tanh in GEGLU_CONFIGS:
+        c = checks[name] = Check(name, "superdiff_tpu_torch/ops/csrc/geglu_ffn.cu",
+                                 "superdiff_tpu/ops/pallas/geglu_ffn.py:114", "operations")
+        # per_step: launches in a 512 px SD step (only the SD block has any);
+        # the other configurations' times are those of one call at each shape
+        shapes = sd_shapes if name == "geglu_ffn_block" else tuple(
+            (shape, 1) for shape, _ in sd_shapes[:5])
+        for (mm, cc), per_step in shapes:
+            f = 4 * cc
+            g = torch.Generator(device=dev).manual_seed(cc)
+            rnd = lambda *s: torch.randn(*s, device=dev, generator=g)
+            bf = torch.bfloat16
+            x = rnd(mm, cc).to(bf)
+            gamma, beta = 1 + 0.1 * rnd(cc), 0.1 * rnd(cc)
+            w1 = (rnd(2 * f, cc) / cc**0.5).to(bf)
+            b1 = (0.1 * rnd(2 * f)).to(bf)
+            w2 = (rnd(cc, f) / f**0.5).to(bf)
+            b2 = (0.1 * rnd(cc)).to(bf)
+            if fused:
+                args = (x, gamma, beta, w1, b1, w2, b2)
+                run = lambda: m.geglu_ffn_block(*args, approximate=tanh)
+                plain = lambda *a: m._reference_block(*a, approximate=tanh)
+            else:
+                args = (x, w1, b1, w2, b2)
+                run = lambda: m.geglu_ffn(*args, approximate=tanh)
+                plain = lambda *a: m._reference(*a, approximate=tanh)
+            got = run()
+            # the plain version in fp32 on the same (bf16-valued) inputs; the
+            # kernel rounds LN(x), the hidden h and its output to bf16 as the
+            # TPU kernel does: bf16-level error against the largest output
+            ref = plain(*(a.float() for a in args))
+            torch.cuda.synchronize()
+            err = (got.float() - ref).abs().max().item()
+            scale = ref.abs().max().item()
+            tol = 2e-2 * scale
+            ms = time_ms(run)
+            split = (graph_ms(run), host_ms(run))
+            plain_ms = time_ms(lambda: plain(*args))
+            lib = graph_ms(lambda: ffn_library(x, gamma, beta, w1, b1, w2, b2, 1e-5, tanh,
+                                               fused))
+            ops = 6 * mm * cc * f / PEAK_BF16
+            nbytes = (2 * mm * cc + 3 * f * cc) * 2 / PEAK_BYTES
+            c.add((mm, cc), err, scale, tol, ms, plain_ms, max(ops, nbytes) * 1e3, lib,
+                  per_step, split)
+            del x, w1, w2, got, ref, args
+            torch.cuda.empty_cache()
+    return checks
 
 
 def profiled_kernels(run):
@@ -964,6 +1027,34 @@ def device_kernels(events):
         yield family(e.key), e.key, us / 1e3, e.count
 
 
+def recorded_kernels(prof):
+    """:func:`device_kernels` of one recorded profiler cycle (``prof`` as
+    ``on_trace_ready`` gets it), without the kernel records that started
+    before the cycle's recorded step began. The tracer now and then hands a
+    cycle the last kernel of the unrecorded run before it, synchronized
+    before the step began, and ``key_averages()`` keeps it: such a
+    ``fused_sde_step`` record made a recorded 10-step CIFAR run count 11
+    launches (``scripts/torch_profile_records.py`` lists these records).
+    Without the host's activity (``cpu=False``) no step marks the start,
+    and every record is kept."""
+    from types import SimpleNamespace
+
+    from torch.autograd import DeviceType
+
+    events = prof.events()
+    begin = min((e.time_range.start for e in events if e.name.startswith("ProfilerStep")),
+                default=-math.inf)
+    by_key = {}
+    for e in events:
+        if e.device_type != DeviceType.CUDA or e.time_range.start < begin:
+            continue
+        r = by_key.setdefault(e.key, SimpleNamespace(
+            key=e.key, device_type=e.device_type, self_device_time_total=0.0, count=0))
+        r.self_device_time_total += e.self_device_time_total
+        r.count += 1
+    return list(device_kernels(by_key.values()))
+
+
 def expect_profiled_launches(what, counts, steps, **calls):
     """The launches a profiled run of ``steps`` captured steps replayed, by
     kernel family, against ``calls`` wrapper calls per step (a family that
@@ -1057,8 +1148,9 @@ def counted_runs(what, run, steps, cycles=3, **calls):
     tracer warms up, with every count set to 0 just before and read just
     after: the wrappers must count 2 per per-step call (step 0 and the
     capture) and no other kernel. The launches are the kernels of each
-    wrapper's family in the trace, the most any recorded run saw (the
-    tracer loses a record now and then), over its kernels per call; they
+    wrapper's family that the trace shows starting inside the recorded run
+    (:func:`recorded_kernels`), the most any recorded run saw (the tracer
+    loses a record now and then), over its kernels per call; they
     must be ``calls[name]`` a step over ``steps`` steps. Returns {wrapper:
     launches}."""
     import torch
@@ -1067,7 +1159,7 @@ def counted_runs(what, run, steps, cycles=3, **calls):
     traced = []
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
                  schedule=schedule(wait=0, warmup=1, active=1, repeat=cycles),
-                 on_trace_ready=lambda p: traced.append(p.key_averages())) as prof:
+                 on_trace_ready=lambda p: traced.append(recorded_kernels(p))) as prof:
         for _ in range(cycles):
             run()
             torch.cuda.synchronize()
@@ -1079,9 +1171,9 @@ def counted_runs(what, run, steps, cycles=3, **calls):
                           **{k: 2 * v for k, v in calls.items()})
             prof.step()
     most = {}
-    for events in traced:
+    for kernels in traced:
         seen = {}
-        for fam, _, _, n in device_kernels(events):
+        for fam, _, _, n in kernels:
             seen[fam] = seen.get(fam, 0) + n
         most = {fam: max(most.get(fam, 0), seen.get(fam, 0)) for fam in {*most, *seen}}
     got = {name: most.get(KERNELS_PER_CALL[name][0], 0) // KERNELS_PER_CALL[name][1]
@@ -1099,7 +1191,8 @@ def profile_by_family(run, path, cycles=3, cpu=True):
     unrecorded run while the tracer warms up; ``cpu=False`` records the
     card's activity alone, not the host's op events. Returns ({family: ms}, wall ms
     under the profiler) of the first recorded run, and {family: kernels
-    launched}, the most any recorded run saw: the tracer loses a kernel
+    launched}, the most any recorded run saw, each run's kernels those that
+    started inside it (:func:`recorded_kernels`): the tracer loses a kernel
     record now and then (one ``fused_sde_step`` record of ten, in one of
     six repeated profiles), so one run alone can miscount."""
     import torch
@@ -1109,7 +1202,8 @@ def profile_by_family(run, path, cycles=3, cpu=True):
     acts = [ProfilerActivity.CPU] * cpu + [ProfilerActivity.CUDA]
     with profile(activities=acts,
                  schedule=schedule(wait=0, warmup=1, active=1, repeat=cycles),
-                 on_trace_ready=lambda p: traced.append(p.key_averages())) as prof:
+                 on_trace_ready=lambda p: traced.append((p.key_averages(),
+                                                         recorded_kernels(p)))) as prof:
         for _ in range(cycles):
             run()
             torch.cuda.synchronize()
@@ -1119,11 +1213,11 @@ def profile_by_family(run, path, cycles=3, cpu=True):
             torch.cuda.synchronize()
             walls.append((time.perf_counter() - t0) * 1e3)
             prof.step()
-    path.write_text(traced[0].table(sort_by="self_device_time_total", row_limit=60))
+    path.write_text(traced[0][0].table(sort_by="self_device_time_total", row_limit=60))
     runs = []
-    for events in traced:
+    for _, kernels in traced:
         totals, counts = {}, {}
-        for fam, _, ms, n in device_kernels(events):
+        for fam, _, ms, n in kernels:
             totals[fam] = totals.get(fam, 0.0) + ms
             counts[fam] = counts.get(fam, 0) + n
         runs.append((totals, counts))
@@ -1271,8 +1365,10 @@ def kernel_wrappers():
 
     rows = {"sd_or_step": (sd_fused_step.sd_or_step, None),
             "flash_mha_eod": (fa.flash_mha_eod, None),
-            "geglu_ffn_block": (geglu_ffn.geglu_ffn_block, None),
             "fused_sde_step": (fused_step.fused_sde_step, None)}
+    # one count per configuration of the FFN kernel, keyed by gelu flavour
+    rows.update({name: ((geglu_ffn.geglu_ffn_block if fused else geglu_ffn.geglu_ffn).launches,
+                        "tanh" if tanh else "erf") for name, fused, tanh in GEGLU_CONFIGS})
     rows.update({name: (fa.flash_mha_bhld.launches, name) for name in BHLD_KERNELS})
     return rows
 
@@ -2554,6 +2650,403 @@ def protein_phase(dev, args):
     log_phase("  phase 7 done")
 
 
+# card vs CPU of the full-width MPNN + ESM2 conditioner on the same draws:
+# every output over the CPU's largest (fp32, TF32 off)
+STRUCT2SEQ_TOL = 1e-3
+
+
+def helix_ca(n, rng):
+    """A CA trace of an alpha helix (2.3 A radius, 1.5 A rise, 100 degrees a
+    residue) with 0.2 A of noise drawn from ``rng``."""
+    import numpy as np
+
+    t = np.arange(n) * np.deg2rad(100.0)
+    ca = np.stack([2.3 * np.cos(t), 2.3 * np.sin(t), 1.5 * np.arange(n)], -1)
+    return (ca + 0.2 * rng.standard_normal(ca.shape)).astype(np.float32)
+
+
+def struct2seq_nets(se3, dev, seed):
+    """Proteus at the reference checkpoint's ``model_conf`` with its
+    ``struct2seq`` section enabled (c_s 256, c_z 128, seq_nums 4) and
+    FrameDiff at its checkpoint's, drawn as ``protein_nets`` draws them; the
+    MPNN + ESM conditioner at ``MPNNESMConfig()`` (ProteinMPNN 128 wide, 3 + 3
+    layers, k 48; ESM2 esm2_t33_650M: 33 x 1280, 20 heads) with the Flax
+    initialisers' distributions from ``seed``, attached as Proteus's
+    ``struct2seq_embedder``."""
+    import copy
+
+    import torch
+
+    from superdiff_tpu_torch.models.protein import struct2seq
+    from superdiff_tpu_torch.models.protein.framediff import FrameDiffConfig, \
+        FrameDiffScoreNetwork
+    from superdiff_tpu_torch.models.protein.proteus import ProteusConfig, ProteusScoreNetwork
+
+    confs = {n: json.loads((ROOT / "tests" / "fixtures" / f"{n}_state_dict_schema.json")
+                           .read_text())["model_conf"] for n in ("proteus", "framediff")}
+    pconf = copy.deepcopy(confs["proteus"])
+    s2s_conf = pconf["embed"]["self_condition"]["struct2seq"]
+    s2s_conf["enable"] = True
+    pcfg = ProteusConfig.from_ckpt_conf(pconf)
+    with torch.device(dev):
+        proteus = ProteusScoreNetwork(pcfg)
+        framediff = FrameDiffScoreNetwork(FrameDiffConfig.from_ckpt_conf(confs["framediff"]),
+                                          score_calc=se3)
+    for i, net in enumerate((proteus, framediff)):
+        scale_update_heads_(draw_nonzero_(net, seed + i)).eval()
+    emb = proteus.embedding_layer.template_embedder.template_angle_embedder
+    with torch.no_grad():
+        emb.linear_1.weight[:, [22, 23, 24, 25, 36, 37, 38, 39]] = 0.0
+    cfg = struct2seq.MPNNESMConfig(c_s=int(s2s_conf["c_s"]), c_z=int(s2s_conf["c_z"]),
+                                   temperature=float(s2s_conf["temperature"]),
+                                   seq_nums=int(s2s_conf["seq_nums"]))
+    s2s = struct2seq.init_mpnn_esm(cfg, seed=seed + 2, device=dev)
+    proteus.embedding_layer.struct2seq_embedder = s2s
+    return proteus, framediff, s2s
+
+
+def struct2seq_card_against_cpu(s2s, dev, seed, n=100):
+    """The conditioner at full width on the card and on the CPU (the same
+    weights and injected draws): the teacher-forced MPNN log-probs, ESM2's
+    representations and attention maps of one tokenised sequence, and the
+    whole ``MPNNESM`` (``esm_s``, ``esm_p``) on a helix self-condition."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from superdiff_tpu_torch.models.protein import residue_constants as rc
+    from superdiff_tpu_torch.models.protein import struct2seq
+
+    t0 = time.perf_counter()
+    cpu = copy.deepcopy(s2s).to("cpu")
+    g = torch.Generator(device=dev).manual_seed(seed)
+    rng = np.random.default_rng(seed)
+    pos = torch.zeros((1, n, 37, 3), device=dev)
+    pos[0, :, rc.CA_IDX] = torch.as_tensor(helix_ca(n, rng), device=dev)
+    sc = {"final_atom_positions": pos,
+          "aatype": torch.full((1, n), rc.GLY_IDX, dtype=torch.long, device=dev)}
+    draws = [struct2seq.mpnn_draws(1, n, g, dev) for _ in range(s2s.cfg.seq_nums)]
+    s = torch.randint(0, 20, (1, n), generator=g, device=dev)
+    order = torch.argsort(torch.rand((1, n), generator=g, device=dev), dim=-1)
+    ones = torch.ones((1, n), device=dev)
+    ridx = torch.arange(n, device=dev)[None]
+    chain = torch.zeros((1, n), dtype=torch.long, device=dev)
+    tokens = torch.randint(4, 24, (1, n + 2), generator=g, device=dev)
+    tokens[:, 0], tokens[:, -1] = struct2seq.ESM_CLS, struct2seq.ESM_EOS
+
+    def outputs(model, to):
+        mv = lambda x: x.to(to)
+        with torch.no_grad():
+            lp = model.mpnn_model(mv(pos[:, :, rc.CA_IDX]), mv(s), mv(ones), mv(ones), mv(ridx),
+                                  mv(chain), mv(order))
+            esm = model.esm(mv(tokens))
+            es, ep = model({k: mv(v) for k, v in sc.items()},
+                           [{k: mv(v) for k, v in d.items()} for d in draws])
+        return {"MPNN log-probs": lp, "ESM2 representations": esm["representations"],
+                "ESM2 attentions": esm["attentions"], "esm_s": es, "esm_p": ep}
+
+    got, ref = outputs(s2s, dev), outputs(cpu, "cpu")
+    errs = {k: ((got[k].cpu() - ref[k]).abs().max() / ref[k].abs().max()).item() for k in ref}
+    log(f"  MPNNESM, length {n}, {s2s.cfg.seq_nums} sequences, card vs CPU on the same "
+        f"weights and injected draws (fp32, TF32 off): error over the CPU's largest output: "
+        + ", ".join(f"{k} {v:.2e}" for k, v in errs.items())
+        + f" (tol {STRUCT2SEQ_TOL:g}); {time.perf_counter() - t0:.1f} s")
+    if not max(errs.values()) <= STRUCT2SEQ_TOL:
+        raise AssertionError(f"MPNNESM card vs CPU: {errs}")
+    del cpu
+
+
+def struct2seq_composition(se3, dev, args):
+    """Proteus (struct2seq on) + FrameDiff, OR over 20 steps at length 100,
+    batch 1, ``esm_rate`` 0.2: the steps the gate names (0, 6, 13) run the
+    branch, the others do not. Prints the ms of a struct2seq step and of a
+    plain step and the peak memory."""
+    import numpy as np
+    import torch
+
+    from superdiff_tpu_torch import cli
+    from superdiff_tpu_torch.pipelines import protein
+
+    t0 = time.perf_counter()
+    proteus, framediff, s2s = struct2seq_nets(se3, dev, args.seed)
+    torch.cuda.synchronize()
+    log(f"  nets (drawn weights): Proteus {sum(p.numel() for p in proteus.parameters()) / 1e6:.3f}"
+        f" M parameters of which MPNN {sum(p.numel() for p in s2s.mpnn_model.parameters()) / 1e6:.3f}"
+        f" M and ESM2 {sum(p.numel() for p in s2s.esm.parameters()) / 1e6:.3f} M "
+        f"({len(proteus.state_dict())} tensors in its state_dict), FrameDiff "
+        f"{sum(p.numel() for p in framediff.parameters()) / 1e6:.3f} M; "
+        f"{time.perf_counter() - t0:.2f} s")
+    struct2seq_card_against_cpu(s2s, dev, args.seed)
+
+    model_a, adapter = cli.proteus_model_fn(proteus, se3)
+    model_b = cli.net_model_fn(framediff)
+    n, steps, rate = 100, 20, 0.2
+    state = {"step": -1, "stamps": [], "flags": [], "branch": []}
+    hook = s2s.register_forward_hook(lambda m, i, o: state["branch"].append(state["step"]))
+
+    def timed_a(feats, t):
+        torch.cuda.synchronize()
+        state["stamps"].append(time.perf_counter())
+        state["step"] += 1
+        state["flags"].append(bool(feats["struct2seq"]))
+        return model_a(feats, t)
+
+    def run(num_t, esm_rate):
+        state.update(step=-1, stamps=[], flags=[], branch=[])
+        cfg = protein.CompositionConfig(num_t=num_t, esm_rate=esm_rate)
+        out = protein.compose(timed_a, model_b, se3, n_res=n, cfg=cfg, sc_adapter_a=adapter,
+                              seed=args.seed)
+        torch.cuda.synchronize()
+        state["stamps"].append(time.perf_counter())
+        return out
+
+    run(3, 0.5)  # warm-up: step 0 with the branch, step 1 without
+    num_esm = int(rate * (steps + 1))
+    gate = sorted(set(np.linspace(0, steps, num_esm, dtype=int).tolist()) - {steps})
+    zero_counts()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    out = run(steps + 1, rate)
+    peak = (torch.cuda.max_memory_allocated() - base) / 2**30
+    expect_counts("struct2seq composition", read_counts())
+    hook.remove()
+    flagged = [i for i, f in enumerate(state["flags"]) if f]
+    if flagged != gate or state["branch"] != gate:
+        raise AssertionError(f"struct2seq gate {gate}: flagged {flagged}, the branch ran on "
+                             f"{state['branch']}")
+    check_composition(f"Proteus (struct2seq) + FrameDiff OR, length {n}, {steps} steps, "
+                      f"esm_rate {rate}", out, n, "OR")
+    dts = np.diff(state["stamps"]) * 1e3
+    s2s_ms = [d for i, d in enumerate(dts) if i in gate]
+    plain_ms = [d for i, d in enumerate(dts) if i not in gate]
+    log(f"  the branch ran on steps {state['branch']} (the gate's {gate}) and no other; "
+        f"ms per step (synced): struct2seq steps {np.median(s2s_ms):.3f} median "
+        f"({', '.join(f'{d:.3f}' for d in s2s_ms)}), plain steps {np.median(plain_ms):.3f} "
+        f"median ({min(plain_ms):.3f}-{max(plain_ms):.3f}); {dts.sum() / 1e3:.3f} s in all; "
+        f"peak {peak:.3f} GiB above the {base / 2**30:.3f} GiB held")
+    del proteus, framediff, s2s, out
+    torch.cuda.empty_cache()
+
+
+def synthetic_pdb_family(directory, count, n, seed):
+    """``count`` helices of ``n`` residues (100 degrees and 1.5 A a residue,
+    each with its own radius and noise, drawn from ``seed``), their axes
+    bent into a circle so that every coordinate stays under 100 A (the PDB
+    writer's columns hold no more: it writes each field a column early),
+    written as PDB files by the port's writer; returns their paths."""
+    import numpy as np
+    import torch
+
+    from superdiff_tpu_torch.models.protein import backbone, rigid
+
+    rng = np.random.default_rng(seed)
+    paths = []
+    big = 1.5 * n / (2 * np.pi) / 0.9  # the axis circle's radius
+    for k in range(count):
+        idx = np.arange(n)
+        theta = idx * np.deg2rad(100.0 + rng.normal(0, 3))
+        phi = idx * 1.5 / big
+        r = big + (2.3 + rng.normal(0, 0.1)) * np.cos(theta)
+        trans = np.stack([r * np.cos(phi), r * np.sin(phi), 2.3 * np.sin(theta)], -1)
+        trans += 0.3 * rng.standard_normal(trans.shape)
+        rotvec = 0.3 * rng.standard_normal((n, 3)) + np.stack(
+            [np.zeros(n), np.zeros(n), theta], -1)
+        quat = rigid.rotmat_to_quat(rigid.rotvec_to_rotmat(
+            torch.as_tensor(rotvec, dtype=torch.float32)))
+        rigids = rigid.rigid(quat, torch.as_tensor(trans - trans.mean(0), dtype=torch.float32))
+        path = Path(directory) / f"helix_{k:03d}.pdb"
+        path.write_text(backbone.to_pdb(backbone.to_atom37(rigids[None])[0]))
+        paths.append(path)
+    return paths
+
+
+def se3_training(se3, dev, args):
+    """``FrameDiffScoreNetwork`` at ``FrameDiffConfig()`` (node 256, edge 128,
+    4 IPA blocks, 8 heads) trained by ``make_train_step`` with
+    ``make_se3_dsm_loss`` (Adam lr 1e-4, warmup 100, EMA 0.999) for 20 steps
+    of batch 8 at length 128 on a synthetic helix family written as PDB files
+    and read back through ``ProteinDataset``: loss finite, parameters and
+    EMA moved; ms per step, peak memory, then the device's idle share over 3
+    profiled steps."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from superdiff_tpu_torch.data.pdb import ProteinDataset, ProteinDatasetConfig
+    from superdiff_tpu_torch.models.from_jax import init_like_flax_
+    from superdiff_tpu_torch.models.protein.framediff import FrameDiffConfig, \
+        FrameDiffScoreNetwork
+    from superdiff_tpu_torch.train import se3_trainer, trainer
+
+    n, b, count = 128, 8, 32
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        synthetic_pdb_family(tmp, count, n, args.seed)
+        ds = ProteinDataset.from_dir(tmp, ProteinDatasetConfig(min_len=20, max_len=512))
+        log(f"  {count} synthetic helices of {n} residues written as PDB files and read back "
+            f"by ProteinDataset: {len(ds)} structures, padded to {ds.pad_to}; "
+            f"{time.perf_counter() - t0:.2f} s")
+    if len(ds) != count or ds.pad_to != n:
+        raise AssertionError(f"ProteinDataset read {len(ds)} structures padded to {ds.pad_to}")
+    with torch.device(dev):
+        net = FrameDiffScoreNetwork(FrameDiffConfig(), score_calc=se3)
+    init_like_flax_(net, torch.Generator(device=dev).manual_seed(args.seed))
+    opt = trainer.make_optimizer(lr=1e-4, warmup=100)
+    state = trainer.init_train_state(torch.Generator(device=dev).manual_seed(args.seed + 1),
+                                     net, opt, ema_rate=0.999)
+    step = trainer.make_train_step(opt, se3_trainer.make_se3_dsm_loss(net, se3))
+    p0 = {k: v.detach().clone() for k, v in net.named_parameters()}
+    ema0 = {k: v.clone() for k, v in state.params_ema.items()}
+    rng = np.random.default_rng(args.seed)
+
+    def batch():
+        return {k: torch.as_tensor(v, device=dev)
+                for k, v in ds.batch(rng.choice(len(ds), b, replace=False)).items()}
+
+    losses, ms = [], []
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    for i in range(20):
+        x = batch()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, loss = step(state, x)
+        losses.append(loss.item())
+        ms.append((time.perf_counter() - t0) * 1e3)
+    peak = (torch.cuda.max_memory_allocated() - base) / 2**30
+    moved = sum(not torch.equal(p0[k], v) for k, v in net.named_parameters())
+    ema_moved = sum(not torch.equal(ema0[k], v) for k, v in state.params_ema.items())
+    n_params = sum(p.numel() for p in net.parameters())
+    log(f"  FrameDiff {n_params / 1e6:.3f} M parameters, batch {b}, length {n}, 20 steps: loss "
+        f"{losses[0]:.4f} -> {losses[-1]:.4f} (all finite: {bool(np.isfinite(losses).all())}); "
+        f"{moved} of {len(p0)} parameter tensors and {ema_moved} EMA tensors moved; ms per step "
+        f"(synced, the loss read) median of the last 18 {np.median(ms[2:]):.3f} "
+        f"({min(ms[2:]):.3f}-{max(ms[2:]):.3f}), first {ms[0]:.1f}; peak {peak:.3f} GiB above "
+        f"the {base / 2**30:.3f} GiB held")
+    if not np.isfinite(losses).all() or moved == 0 or ema_moved == 0:
+        raise AssertionError("SE(3) training: a loss not finite, or parameters / EMA unmoved")
+    x = batch()
+    fams, wall, _ = profile_by_family(lambda: [step(state, x) for _ in range(3)],
+                                      OUT / "chip_smoke_se3_train_profile.txt", cycles=1,
+                                      cpu=False)
+    total = sum(fams.values())
+    log(f"  profile (3 train steps): {total / 3:.3f} ms device time per step, {wall / 3:.3f} ms "
+        f"wall per step under the profiler (device idle {1 - total / wall:.3f}); by family "
+        f"(ms per step): " + ", ".join(
+            f"{k} {v / 3:.4f}" for k, v in sorted(fams.items(), key=lambda kv: -kv[1])[:6]))
+    del net, state
+    torch.cuda.empty_cache()
+
+
+def write_cifar10(root, n_per_batch, seed):
+    """A small CIFAR-10 stand-in in the ``cifar-10-batches-py`` layout
+    (five training batches and a test batch of ``n_per_batch`` images drawn
+    from ``seed``)."""
+    import pickle
+
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    d = Path(root) / "cifar-10-batches-py"
+    d.mkdir(parents=True)
+    for name in [f"data_batch_{i}" for i in range(1, 6)] + ["test_batch"]:
+        with open(d / name, "wb") as f:
+            pickle.dump({b"data": rng.integers(0, 256, (n_per_batch, 3072), dtype=np.uint8),
+                         b"labels": rng.integers(0, 10, n_per_batch).tolist()}, f)
+
+
+def cli_on_card(dev, args):
+    """``cli sd --preset tiny`` (2 steps) and ``cli cifar`` at a tiny config
+    (``CONFIGS['vpsde']`` swapped for it in this process): 4 train steps,
+    then ``fid_stats`` of a small CIFAR-10 stand-in with seed-drawn
+    Inception weights; both on the card (the commands' default device), each
+    writing its outputs."""
+    import os
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from superdiff_tpu_torch import cli
+    from superdiff_tpu_torch.pipelines import cifar
+
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        cli.main(["sd", "--preset", "tiny", "--num_inference_steps", "2",
+                  "--out_dir", f"{tmp}/sd"])
+        torch.cuda.synchronize()
+        img_dir = Path(tmp) / "sd" / "and" / "a_cat_and_a_dog"
+        with np.load(img_dir / "latents.npz") as f:
+            lat = f["latents"]
+        images = sorted(p.name for p in img_dir.iterdir() if p.name != "latents.npz")
+        log(f"  cli sd --preset tiny --num_inference_steps 2 (and, batch 6, 512 px): "
+            f"{time.perf_counter() - t0:.1f} s; latents {lat.shape} finite "
+            f"{bool(np.isfinite(lat).all())}; images {images}")
+        if not np.isfinite(lat).all() or not images:
+            raise AssertionError("cli sd wrote no finite latents or no images")
+
+        tiny = dict(nf=32, ch_mult=(1, 2), num_res_blocks=1, attn_resolutions=(16,),
+                    batch_size=16, log_every=1, save_every=4, eval_batch_size=25,
+                    image_size=32)
+        saved = cifar.CONFIGS["vpsde"]
+        cifar.CONFIGS["vpsde"] = lambda: cifar.CifarConfig(**tiny)
+        write_cifar10(f"{tmp}/data", 50, args.seed)
+        os.environ["SUPERDIFF_DATA_DIR"] = f"{tmp}/data"
+        try:
+            t0 = time.perf_counter()
+            cli.main(["cifar", "--mode", "train", "--config", "vpsde", "--n_iters", "4",
+                      "--workdir", f"{tmp}/cifar"])
+            recs = [json.loads(x) for x in
+                    (Path(tmp) / "cifar" / "metrics.jsonl").read_text().splitlines()]
+            ckpts = sorted(os.listdir(Path(tmp) / "cifar" / "checkpoints"))
+            log(f"  cli cifar --mode train (tiny config, 4 steps): "
+                f"{time.perf_counter() - t0:.1f} s; losses "
+                f"{[round(r['loss'], 4) for r in recs]}; checkpoints {ckpts}")
+            if len(recs) != 4 or not np.isfinite([r["loss"] for r in recs]).all() \
+                    or ckpts != ["chkpt_4.pt"]:
+                raise AssertionError("cli cifar train: records or checkpoint missing")
+            inception_npz(Path(tmp) / "inception.npz", args.seed)
+            t0 = time.perf_counter()
+            cli.main(["cifar", "--mode", "fid_stats", "--config", "vpsde", "--workdir",
+                      f"{tmp}/cifar", "--inception_weights", f"{tmp}/inception.npz"])
+            stats = {}
+            for split in ("train", "test"):
+                with np.load(Path(tmp) / "cifar" / "assets" / "stats"
+                             / f"cifar10_{split}_stats.npz") as f:
+                    stats[split] = f["pool_3"]
+            log(f"  cli cifar --mode fid_stats (a 300-image CIFAR-10 stand-in): "
+                f"{time.perf_counter() - t0:.1f} s; pool_3 "
+                + ", ".join(f"{k} {v.shape}" for k, v in stats.items()))
+            if not all(np.isfinite(v).all() and v.shape[1] == 2048 for v in stats.values()):
+                raise AssertionError("cli cifar fid_stats: bad statistics")
+        finally:
+            cifar.CONFIGS["vpsde"] = saved
+            del os.environ["SUPERDIFF_DATA_DIR"]
+    expect_counts("the CLI runs (plain paths)", read_counts())
+
+
+def struct2seq_training_phase(dev, args):
+    """Phase 8: struct2seq-conditioned composition, SE(3) training and the
+    ``sd`` / ``cifar`` commands, each at the sizes its docstring gives."""
+    import torch
+
+    from superdiff_tpu_torch.models.protein import SE3Diffuser
+
+    log(f"  card: {card_line()}")
+    se3 = SE3Diffuser.default(device=dev)
+    log_phase("  struct2seq-conditioned composition")
+    struct2seq_composition(se3, dev, args)
+    log_phase("  SE(3) training")
+    se3_training(se3, dev, args)
+    log_phase("  the cifar and sd commands")
+    zero_counts()
+    cli_on_card(dev, args)
+    torch.cuda.empty_cache()
+    log_phase("  phase 8 done")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--steps", type=int, default=4)
@@ -2564,6 +3057,8 @@ def main(argv=None) -> int:
                     help="run phase 6 alone (main() starts it so, in a fresh process)")
     ap.add_argument("--phase7-only", action="store_true",
                     help="run phase 7 alone (main() starts it so, in a fresh process)")
+    ap.add_argument("--phase8-only", action="store_true",
+                    help="run phase 8 alone (main() starts it so, in a fresh process)")
     args = ap.parse_args(argv)
 
     import torch
@@ -2589,6 +3084,9 @@ def main(argv=None) -> int:
         return 0
     if args.phase7_only:
         protein_phase(dev, args)
+        return 0
+    if args.phase8_only:
+        struct2seq_training_phase(dev, args)
         return 0
     card = card_line()
     log(f"torch {torch.__version__} cuda {torch.version.cuda}; {torch.cuda.get_device_name(0)}")
@@ -2618,8 +3116,9 @@ def main(argv=None) -> int:
     log(f"  card: {card}")
 
     log_phase("phase 2: kernels vs their plain versions")
-    checks = {"sd_or_step": check_sd_or_step(dev), "flash_mha_eod": check_flash(dev),
-              "geglu_ffn_block": check_geglu(dev), "fused_sde_step": check_fused_sde_step(dev)}
+    checks = {"sd_or_step": check_sd_or_step(dev), "flash_mha_eod": check_flash(dev)}
+    checks.update(check_geglu(dev))
+    checks["fused_sde_step"] = check_fused_sde_step(dev)
     checks.update(check_bhld(dev))
     checks.update(check_packed(dev))
     torch.cuda.empty_cache()
@@ -2643,6 +3142,7 @@ def main(argv=None) -> int:
     log(f"  generate (captured): {wall:.3f} s wall")
     expect_counts(f"512 px or, {args.steps} steps captured (step 0 + capture)", counts,
                   sd_or_step=2, flash_mha_eod=20, geglu_ffn_block=32)
+    main_counts = counts
     eager, eager_counts, _ = counted_generate(sd, mod, "or", cfg, 8, args.seed)
     expect_counts(f"512 px or, {args.steps} steps eager", eager_counts, sd_or_step=args.steps,
                   flash_mha_eod=10 * args.steps, geglu_ffn_block=16 * args.steps)
@@ -2738,6 +3238,18 @@ def main(argv=None) -> int:
     if proc.returncode != 0:
         raise AssertionError(f"phase 7 failed (exit code {proc.returncode})")
 
+    log_phase("phase 8: struct2seq-conditioned composition, SE(3) training, the cifar and sd "
+              "commands (in a fresh process)")
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, str(Path(__file__).resolve()), "--phase8-only",
+                           "--seed", str(args.seed)], timeout=600)
+    log(f"  phase 8: {time.perf_counter() - t0:.1f} s, exit code {proc.returncode}")
+    if proc.returncode != 0:
+        raise AssertionError(f"phase 8 failed (exit code {proc.returncode})")
+
+    # the FFN kernel's tanh and unfused configurations: their own counts
+    # over the main path's run (phase 3); no served path runs them
+    launches.update({name: main_counts[name] for name, *_ in GEGLU_CONFIGS[1:]})
     log(card)
     print(json.dumps({"kernels": [c.row(launches[n]) for n, c in checks.items()]}), flush=True)
     print(json.dumps({"ok": True, "device": {

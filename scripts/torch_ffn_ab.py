@@ -23,18 +23,23 @@ residual as plain ops, one function timed as a whole). After all timing
 with torch.profiler and split by kernel name (``geglu_ln``, ``geglu_up``,
 ``geglu_down`` and whatever else a call launches). One line per shape gives
 every time and the medians; the last line is a JSON object with the
-medians, the per-launch split, the card's name and power limit. Needs one
-CUDA card.
+medians, the per-launch split, the card's name and power limit. Before the
+timing, the SASS (``cuobjdump -sass``) of each of the parent's kernels is
+compared with that of the change's kernel in SD's configuration (exact-erf
+gelu, LN and residual): per kernel, identical or the count of instructions
+that differ. Needs one CUDA card.
 """
 
 from __future__ import annotations
 
 import argparse
+import difflib
 import importlib
 import importlib.util
 import json
 import re
 import statistics
+import subprocess
 import sys
 import threading
 from pathlib import Path
@@ -97,6 +102,67 @@ def split_by_kernel(run, calls=10):
     return out
 
 
+def sass_by_kernel(tool, lib):
+    """{mangled kernel name: its SASS instructions} of a built library, each
+    instruction without its address and encoding comments. The anonymous
+    namespace's name, which carries a hash of the compiled file, reads
+    ``ANON`` so that two builds' names compare."""
+    out = subprocess.run([tool, "-sass", str(lib)], capture_output=True, text=True,
+                         timeout=300).stdout
+    kernels = {}
+    for part in out.split("Function : ")[1:]:
+        name, *lines = part.splitlines()
+        code = [re.sub(r"/\*.*?\*/", "", ln).strip() for ln in lines]
+        name = re.sub(r"\d+_GLOBAL__N__\w+?_cu_[0-9a-f]+", "ANON", name.strip())
+        kernels[name] = [ln for ln in code if ln.endswith(";")]
+    return kernels
+
+
+def sd_configuration(name):
+    """The key that pairs a change's kernel in SD's configuration with the
+    parent's kernel, or None for the other configurations: the change's
+    ``geglu_up<T, false>`` (erf gelu) and ``geglu_down<T, true>`` (residual)
+    lose their bool template argument (``Lb0E`` / ``Lb1E`` in the mangled
+    name); the parent's have none."""
+    if "geglu_up" in name:
+        return name.replace("Lb0E", "") if "Lb0E" in name or "Lb" not in name else None
+    if "geglu_down" in name:
+        return name.replace("Lb1E", "") if "Lb1E" in name or "Lb" not in name else None
+    return name
+
+
+def compare_sass(mods):
+    """Per parent kernel: identical to the change's in SD's configuration,
+    or the count of instructions that differ; None without cuobjdump."""
+    from chip_smoke import cuobjdump_tool
+
+    tool = cuobjdump_tool()
+    if tool is None:
+        return None
+    sass = {tag: sass_by_kernel(tool, importlib.import_module(
+        f"{mod.__package__}._build")._target("geglu_ffn")) for tag, mod in mods.items()}
+    change = {sd_configuration(n): code for n, code in sass["change"].items()}
+    verdicts = {}
+    for name, code in sass["parent"].items():
+        other = change.get(name)
+        if other is None:
+            verdicts[name] = "no counterpart in the change"
+            continue
+        diff = sum(1 for ln in difflib.ndiff(code, other) if ln[:1] in "+-")
+        verdicts[name] = (f"identical ({len(code)} instructions)" if code == other else
+                          f"{diff} lines differ ({len(code)} / {len(other)} instructions)")
+    return verdicts
+
+
+def erf_block_args(mod):
+    """``_launch``'s arguments after the tensors for SD's block (exact-erf
+    gelu, LN and residual): eps alone in checkouts whose kernel has one
+    configuration, eps, approximate and fused in later ones."""
+    import inspect
+
+    return (1e-5, False, True) if "fused" in inspect.signature(mod._launch).parameters else (1e-5,)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--parent", required=True, type=Path)
@@ -124,12 +190,16 @@ def main(argv=None) -> int:
 
     card = card_line()
     print(f"{torch.cuda.get_device_name(0)}; {card}", flush=True)
+    sass = compare_sass(mods)
+    print("SASS, parent against the change in SD's configuration: " + (
+        "no cuobjdump found" if sass is None else
+        "; ".join(f"{n} {v}" for n, v in sass.items())), flush=True)
     dev = torch.device("cuda", 0)
     shapes = SHAPES_512 + (SHAPES_768 if args.all else ())
     summary, failed, runners = {}, [], {}
     for m, c in shapes:
         data = inputs(m, c, dev)
-        runs = {tag: (lambda mod=mod, data=data: mod._launch(*data, 1e-5))
+        runs = {tag: (lambda mod=mod, data=data: mod._launch(*data, *erf_block_args(mod)))
                 for tag, mod in mods.items()}
         outs = {tag: run() for tag, run in runs.items()}
         torch.cuda.synchronize()
@@ -169,7 +239,8 @@ def main(argv=None) -> int:
                           for tag, s in split.items()), flush=True)
     runners.clear()
     torch.cuda.empty_cache()
-    print(json.dumps({"card": card, "median_ms": summary, "failed": failed}), flush=True)
+    print(json.dumps({"card": card, "sass": sass, "median_ms": summary, "failed": failed}),
+          flush=True)
     return 1 if failed else 0
 
 

@@ -8,14 +8,22 @@ mirrors its structure and names:
               the DSM loss
   models/     the CIFAR ScoreUNet and its ensembles, the toy MLP score net,
               the SD-1.x stack (UNet, CLIP text, VAE), InceptionV3, the
-              weight and training-state carrier from Flax trees
+              protein score networks and the struct2seq conditioner
+              (ProteinMPNN + ESM2), the weight and training-state carrier
+              from Flax trees
   ops/        hand-written CUDA kernels for sm_90a, each beside its plain
               PyTorch version, built by nvcc at first use
-  train/      training state, Adam + warmup + EMA step, checkpoints
-  data/       image datasets with the reference's split DSL
-  eval/       FID / IS statistics and bits per dimension
-  utils/      metric logging, timing, image grids
-  pipelines/  end-to-end pipelines: sd, cifar (train, joint sampler, FID)
+  train/      training state, Adam + warmup + EMA step, checkpoints, the
+              SE(3) DSM loss
+  data/       image datasets with the reference's split DSL, PDB parsing
+              and the protein training data
+  eval/       FID / IS statistics, bits per dimension, CLIP / ImageReward,
+              the protein metrics (structure, self-consistency, novelty,
+              the structure-embedding map)
+  utils/      metric logging, timing, image grids, the download policy
+  pipelines/  end-to-end pipelines: sd, cifar (train, joint sampler, FID),
+              protein (SE(3) composition)
+  cli.py      the cifar, sd and protein commands
 
 Importing the package touches no CUDA: kernels are compiled and loaded
 inside the first call that launches them.

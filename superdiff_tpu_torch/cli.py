@@ -1,17 +1,25 @@
-"""Experiment CLI of the port (``superdiff_tpu/cli.py``'s ``protein``
-subcommand; ``cifar`` and ``sd`` are not ported yet):
+"""Experiment CLI of the port (``superdiff_tpu/cli.py``):
 
+  python -m superdiff_tpu_torch.cli cifar --mode train --config vpsde --workdir w
+  python -m superdiff_tpu_torch.cli cifar --mode eval_joint_fid --chkpts a,b --stoch
+  python -m superdiff_tpu_torch.cli sd --method and --obj "a cat" --bg "a dog"
   python -m superdiff_tpu_torch.cli protein --length 100 --operator OR
 
-SE(3) protein composition: model a (the Proteus role, kappa weights it) and
-model b (the FrameDiff role) composed along one reverse trajectory. A
-reference checkpoint pickle (``.pkl`` / ``.pth`` / ``.pt``) in ``--ckpt_a``
-/ ``--ckpt_b`` loads into the checkpoint-faithful Proteus or FrameDiff
-network (Proteus recognised by its template-embedder keys); without one,
-a randomly initialised ``IPAConfig.proteus_like()`` / ``framediff_like()``
-network stands in. Each run writes a config snapshot, one PDB per
-backbone and one JSON line per backbone on standard output. Runs on the
-card unless ``--device cpu`` is given.
+``cifar``: training, single-model and joint FID, dataset statistics.
+``sd``: two-prompt SD composition (``--preset tiny`` for a small random
+stack, its attention and FFN plain PyTorch as the kernels take only SD's
+widths), latents, images and the CLIP / ImageReward metrics where their
+weights are local. ``protein``: SE(3) composition of model a (the Proteus
+role, kappa weights it) and model b (the FrameDiff role). A reference
+checkpoint pickle (``.pkl`` / ``.pth`` / ``.pt``) in ``--ckpt_a`` /
+``--ckpt_b`` loads into the checkpoint-faithful Proteus or FrameDiff
+network (Proteus recognised by its template-embedder keys; a Proteus config
+with struct2seq enabled takes its MPNN + ESM conditioner from
+``--mpnn_ckpt`` / ``--esm_dir``, drawn where not given); without one, a
+randomly initialised ``IPAConfig.proteus_like()`` / ``framediff_like()``
+network stands in. Each run writes a config snapshot beside its outputs.
+Every command runs on the card unless ``--device cpu`` is given (JAX's
+``--platform``); JAX's multi-process flags are not ported.
 """
 
 from __future__ import annotations
@@ -52,6 +60,90 @@ def proteus_feats(feats: dict) -> dict:
     }
 
 
+def cmd_cifar(args):
+    from .pipelines import cifar as C
+
+    cfg = C.CONFIGS[args.config]()
+    if args.batch_size:
+        cfg.batch_size = args.batch_size
+    _snapshot(args, args.workdir)
+    dev = args.device
+    if args.mode == "train":
+        C.train(cfg, args.workdir, n_iters=args.n_iters, device=dev)
+    elif args.mode == "eval_fid":
+        print(C.evaluate_fid(cfg, args.workdir, stoch=args.stoch, stats_path=args.stats_path,
+                             inception_weights=args.inception_weights, device=dev))
+    elif args.mode == "eval_joint_fid":
+        print(C.evaluate_joint_fid(cfg, args.workdir, args.chkpts.split(","), stoch=args.stoch,
+                                   stats_path=args.stats_path,
+                                   inception_weights=args.inception_weights, device=dev))
+    elif args.mode == "fid_stats":
+        print(C.fid_stats(cfg, args.workdir, inception_weights=args.inception_weights,
+                          device=dev))
+    else:
+        raise SystemExit(f"unknown cifar mode {args.mode}")
+
+
+def cmd_sd(args):
+    import numpy as np
+
+    from .eval import clip_metrics
+    from .pipelines import sd as S
+
+    cfg = S.SDPipelineConfig(
+        num_inference_steps=args.num_inference_steps, guidance_scale=args.guidance_scale,
+        height=args.height, width=args.width, temperature=args.T, logp=args.logp,
+        lift=args.lift)
+    if args.preset == "tiny":
+        import dataclasses
+
+        from .models.sd.clip import CLIPTextConfig
+        from .models.sd.unet import SDUNetConfig
+        from .models.sd.vae import VAEConfig
+
+        # the kernels take SD's widths only (C and F multiples of 64, head
+        # dims 40 / 80 / 160); at the tiny widths JAX's wrappers run their
+        # plain references, and so does this preset
+        unet = dataclasses.replace(SDUNetConfig.tiny(), attn_impl="einsum", ffn_impl="einsum")
+        mod = S.build_sd_modules(0, unet_config=unet,
+                                 text_config=CLIPTextConfig.tiny(), vae_config=VAEConfig.tiny(),
+                                 device=args.device)
+    else:
+        mod = S.build_sd_modules(0, weights_dir=args.weights_dir, device=args.device)
+    _snapshot(args, args.out_dir)
+    out = S.generate(mod, args.method, args.obj, args.bg, seed=args.seed,
+                     batch_size=args.batch_size, cfg=cfg)
+    method_dir = os.path.join(args.out_dir,
+                              args.method if args.T == 1 else f"{args.method}_T{args.T}")
+    pair = f"{args.obj.replace(' ', '_')}_and_{args.bg.replace(' ', '_')}"
+    img_dir = os.path.join(method_dir, pair)
+    os.makedirs(img_dir, exist_ok=True)
+    images = out["images"].cpu().numpy()
+    np.savez_compressed(os.path.join(img_dir, "latents.npz"),
+                        latents=out["latents"].float().cpu().numpy())
+    try:
+        from PIL import Image
+
+        for i, img in enumerate(images):
+            Image.fromarray(img).save(os.path.join(img_dir, f"{i}.png"))
+    except ImportError:
+        np.savez_compressed(os.path.join(img_dir, "images.npz"), images=images)
+    metrics = {}
+    scorer = clip_metrics.get_clip_scorer()
+    if scorer is not None:
+        metrics["clip"] = scorer(images, args.obj, args.bg)
+    ir = clip_metrics.get_image_reward_scorer()
+    if ir is not None:
+        metrics["image_reward"] = ir(images, args.obj, args.bg)
+    metrics["final_ll_obj"] = out["traces"]["final_ll_obj"].cpu().tolist()
+    metrics["final_ll_bg"] = out["traces"]["final_ll_bg"].cpu().tolist()
+    mdir = os.path.join(args.out_dir, f"metrics_{args.method}")
+    os.makedirs(mdir, exist_ok=True)
+    with open(os.path.join(mdir, f"metrics_{args.method}_{pair}.json"), "w") as f:
+        json.dump(metrics, f, indent=2)
+    print(json.dumps({k: v for k, v in metrics.items() if "ll" in k}))
+
+
 def proteus_model_fn(net, se3):
     """(model_fn, (sc_init, sc_update)) of a ``ProteusScoreNetwork`` for
     ``pipelines.protein.compose``: :func:`proteus_feats`, scores from the
@@ -62,7 +154,8 @@ def proteus_model_fn(net, se3):
     from .models.protein import rigid
 
     def model(feats, t):
-        out = net(proteus_feats(feats), self_condition=feats.get("self_cond"))
+        out = net(proteus_feats(feats), self_condition=feats.get("self_cond"),
+                  struct2seq=feats.get("struct2seq", False))
         rigids_t = feats["rigids_t"]
         out["rot_score"] = se3.calc_rot_score(rigid.rigid_rotmat(rigids_t),
                                               out["pred_rotmats"], feats["t"][:, None])
@@ -89,13 +182,17 @@ def net_model_fn(net):
     return lambda feats, t: net(feats)
 
 
-def build_protein_model(ckpt, fallback_cfg_fn, se3, seed: int, device):
+def build_protein_model(ckpt, fallback_cfg_fn, se3, seed: int, device, struct2seq_opts=None):
     """(model_fn, sc_adapter or None) for the composition.
 
     A reference torch pickle loads into ``ProteusScoreNetwork`` (detected
     by its ``embedding_layer.template_embedder`` keys) or
     ``FrameDiffScoreNetwork``, built from the checkpoint's embedded model
-    config, by ``load_state_dict`` (strict). No checkpoint gives an
+    config, by ``load_state_dict`` (strict). A Proteus config with
+    struct2seq enabled gets its MPNN + ESM conditioner from
+    ``struct2seq_opts`` ({mpnn_ckpt, esm_dir, seq_nums}; the combiner heads
+    from the checkpoint); the composition's ``esm_rate`` gates it per step.
+    No checkpoint gives an
     ``IPAScoreNetwork`` of ``fallback_cfg_fn()`` drawn with the Flax
     initialisers' distributions from ``seed``. A directory is the JAX
     package's own (Orbax) format: it raises, as does a missing file."""
@@ -119,8 +216,17 @@ def build_protein_model(ckpt, fallback_cfg_fn, se3, seed: int, device):
         if any(k.startswith("embedding_layer.template_embedder") for k in sd):
             from .models.protein.proteus import ProteusConfig, ProteusScoreNetwork
 
-            net = ProteusScoreNetwork(ProteusConfig.from_ckpt_conf(mc) if mc
-                                      else ProteusConfig())
+            cfg = ProteusConfig.from_ckpt_conf(mc) if mc else ProteusConfig()
+            s2s = None
+            if cfg.struct2seq_enable:
+                from .models.protein import struct2seq
+
+                opts = struct2seq_opts or {}
+                s2s = struct2seq.load_mpnn_esm(
+                    sd, c_s=cfg.node_embed_size, c_z=cfg.edge_embed_size,
+                    mpnn_ckpt=opts.get("mpnn_ckpt"), esm_dir=opts.get("esm_dir"),
+                    seq_nums=opts.get("seq_nums", 4), device=device)
+            net = ProteusScoreNetwork(cfg, s2s)
             net.load_state_dict(sd, strict=True)
             net = net.to(device).eval()
             print(f"loaded Proteus checkpoint {ckpt}: {len(sd)} tensors")
@@ -140,18 +246,16 @@ def build_protein_model(ckpt, fallback_cfg_fn, se3, seed: int, device):
     return net_model_fn(net.eval()), None
 
 
-# the struct2seq options, which JAX's parser takes; any other value raises
-STRUCT2SEQ_DEFAULTS = {"mpnn_ckpt": None, "esm_dir": None, "seq_nums": 4}
-
-
 def cmd_protein(args):
     from .models.protein import IPAConfig, SE3Diffuser, backbone
     from .pipelines.protein import CompositionConfig, compose
 
-    s2s = [f"--{k}" for k, v in STRUCT2SEQ_DEFAULTS.items() if getattr(args, k) != v]
-    if s2s:
-        raise NotImplementedError(f"{', '.join(s2s)} configure struct2seq "
-                                  f"(models/protein/struct2seq.py), which is not ported yet")
+    if args.mpnn_ckpt and not os.path.isfile(args.mpnn_ckpt):
+        raise SystemExit(f"--mpnn_ckpt not found: {args.mpnn_ckpt}")
+    if args.esm_dir and not os.path.isdir(args.esm_dir):
+        raise SystemExit(f"--esm_dir not found: {args.esm_dir}")
+    if args.seq_nums < 1:
+        raise SystemExit("--seq_nums must be >= 1")
     if args.batch < 1:
         raise SystemExit("--batch must be >= 1")
     if args.num_t < 2:
@@ -171,8 +275,10 @@ def cmd_protein(args):
         esm_rate=args.esm_rate,
     )
     _snapshot(args, args.out_dir)
-    model_a, sc_adapter_a = build_protein_model(args.ckpt_a, IPAConfig.proteus_like, se3, 1,
-                                                args.device)
+    model_a, sc_adapter_a = build_protein_model(
+        args.ckpt_a, IPAConfig.proteus_like, se3, 1, args.device,
+        struct2seq_opts={"mpnn_ckpt": args.mpnn_ckpt, "esm_dir": args.esm_dir,
+                         "seq_nums": args.seq_nums})
     model_b, sc_adapter_b = build_protein_model(args.ckpt_b, IPAConfig.framediff_like, se3, 2,
                                                 args.device)
 
@@ -203,9 +309,52 @@ def cmd_protein(args):
                 }))
 
 
+def _device_arg(parser):
+    parser.add_argument("--device", default="cuda",
+                        help="torch device (the card by default; cpu for a run without one)")
+
+
 def build_parser() -> argparse.ArgumentParser:
+    from .pipelines.sd import METHODS
+
     p = argparse.ArgumentParser(prog="superdiff_tpu_torch")
     sub = p.add_subparsers(dest="cmd", required=True)
+
+    c = sub.add_parser("cifar", help="CIFAR train/eval (cifar/main.py modes)")
+    c.add_argument("--mode", required=True,
+                   choices=["train", "eval_fid", "eval_joint_fid", "fid_stats"])
+    c.add_argument("--config", default="vpsde",
+                   choices=["vpsde", "vpsdeA", "vpsdeB", "vpsde_less_5", "vpsde_more_5"])
+    c.add_argument("--workdir", default="./runs/cifar")
+    c.add_argument("--chkpts", default="", help="comma-separated checkpoint dirs for joint eval")
+    c.add_argument("--stoch", action="store_true")
+    c.add_argument("--n_iters", type=int, default=None)
+    c.add_argument("--batch_size", type=int, default=None)
+    c.add_argument("--stats_path", default=None)
+    c.add_argument("--inception_weights", default=None)
+    _device_arg(c)
+    c.set_defaults(fn=cmd_cifar)
+
+    s = sub.add_parser("sd", help="Stable-Diffusion composition (clip_eval.py)")
+    s.add_argument("--method", default="and", choices=list(METHODS))
+    s.add_argument("--obj", default="a cat")
+    s.add_argument("--bg", default="a dog")
+    s.add_argument("--num_inference_steps", type=int, default=1000)
+    s.add_argument("--seed", type=int, default=1)
+    s.add_argument("--batch_size", type=int, default=6)
+    s.add_argument("--height", type=int, default=512)
+    s.add_argument("--width", type=int, default=512)
+    s.add_argument("--T", type=float, default=1.0)
+    s.add_argument("--logp", type=float, default=0.0)
+    s.add_argument("--lift", type=float, default=0.0)
+    s.add_argument("--guidance_scale", type=float, default=7.5)
+    s.add_argument("--weights_dir", default=None)
+    s.add_argument("--preset", default="sd15", choices=["sd15", "tiny"],
+                   help="tiny = 1/16-width stack for smoke runs without weights")
+    s.add_argument("--out_dir", default="./runs/sd")
+    _device_arg(s)
+    s.set_defaults(fn=cmd_sd)
+
     pr = sub.add_parser("protein", help="SE(3) composition (superdiff/inference.py)")
     pr.add_argument("--length", type=int, default=100)
     pr.add_argument("--lengths", default=None,
@@ -228,18 +377,16 @@ def build_parser() -> argparse.ArgumentParser:
     pr.add_argument("--ckpt_b", default=None)
     pr.add_argument("--esm_rate", type=float, default=0.0,
                     help="fraction of steps with struct2seq / ESM conditioning on the "
-                    "proteus-role model (needs struct2seq, not ported yet)")
-    pr.add_argument("--mpnn_ckpt", default=STRUCT2SEQ_DEFAULTS["mpnn_ckpt"],
-                    help="ProteinMPNN CA weights for struct2seq (not ported yet: raises)")
-    pr.add_argument("--esm_dir", default=STRUCT2SEQ_DEFAULTS["esm_dir"],
-                    help="local ESM2 snapshot dir for struct2seq (not ported yet: raises)")
-    pr.add_argument("--seq_nums", type=int, default=STRUCT2SEQ_DEFAULTS["seq_nums"],
-                    help="sequences sampled per struct2seq call (not ported yet: raises "
-                    "when it differs from the default)")
+                    "proteus-role model")
+    pr.add_argument("--mpnn_ckpt", default=None,
+                    help="ProteinMPNN CA weights file (v_48_020.pt) for struct2seq")
+    pr.add_argument("--esm_dir", default=None,
+                    help="local transformers ESM2 snapshot dir for struct2seq")
+    pr.add_argument("--seq_nums", type=int, default=4,
+                    help="sequences sampled per struct2seq call")
     pr.add_argument("--overwrite", action="store_true")
     pr.add_argument("--out_dir", default="./runs/protein")
-    pr.add_argument("--device", default="cuda",
-                    help="torch device (the card by default; cpu for a run without one)")
+    _device_arg(pr)
     pr.set_defaults(fn=cmd_protein)
     return p
 

@@ -1,5 +1,7 @@
-"""Image datasets with the reference's split DSL (numpy host pipeline)."""
+"""Image datasets with the reference's split DSL (numpy host pipeline) and
+the PDB-backed protein training data (``pdb``)."""
 
+from . import pdb
 from .datasets import (
     ImageDataset,
     PrefetchIterator,
@@ -8,5 +10,5 @@ from .datasets import (
     get_image_scaler,
 )
 
-__all__ = ["ImageDataset", "PrefetchIterator", "SplitSpec", "get_image_scaler",
+__all__ = ["pdb", "ImageDataset", "PrefetchIterator", "SplitSpec", "get_image_scaler",
            "get_image_inverse_scaler"]

@@ -72,6 +72,13 @@ _DP_B4 = (5179 / 57600, 0.0, 7571 / 16695, 393 / 640, -92097 / 339200,
           187 / 2100, 1 / 40)
 
 
+def _fma32(a: np.float32, b: np.float32, c: np.float32) -> np.float32:
+    """``a * b + c`` rounded once to float32, as XLA's fused multiply-add
+    computes the jitted ``t + c_i * dt`` (the float64 product of two
+    float32 values is exact)."""
+    return np.float32(np.float64(a) * np.float64(b) + np.float64(c))
+
+
 def odeint_dopri5(
     f: Callable,
     y0: State,
@@ -100,7 +107,7 @@ def odeint_dopri5(
     def step(t, y, k1, dt):
         ks = [k1]
         for i in range(1, 7):
-            tt = torch.tensor(t + f32(_DP_C[i]) * dt, dtype=torch.float32, device=dev)
+            tt = torch.tensor(_fma32(f32(_DP_C[i]), dt, t), dtype=torch.float32, device=dev)
             ks.append(f(tt, _axpy(y, float(dt), ks, _DP_A[i])))
         y5 = _axpy(y, float(dt), ks, _DP_B5)
         err = tuple(a - a for a in y)  # zeros of the state's shapes

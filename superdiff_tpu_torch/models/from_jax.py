@@ -88,10 +88,11 @@ def protein_net_from_flax(net: nn.Module, params: Mapping) -> nn.Module:
         else:
             mapping = convert.proteus_mapping(net.cfg)
             unused = convert.proteus_unused_keys(net.cfg)
-        leaves = dict(_flatten(params))
-        sd = {key: torch.tensor(leaves[path].T if tf == "T" else leaves[path])
-              for key, path, tf in mapping}
+        sd = _mapped(dict(_flatten(params)), mapping)
         missing, unexpected = net.load_state_dict(sd, strict=False)
+        # a Proteus's MPNN + ESM conditioner is a tree of its own in JAX
+        # (carried by mpnn_esm_from_flax)
+        missing = [k for k in missing if not k.startswith("embedding_layer.struct2seq_embedder.")]
         if set(missing) != set(unused) or unexpected:
             raise KeyError(f"Flax tree does not cover the network: missing "
                            f"{sorted(set(missing) - set(unused))[:5]}, unexpected "
@@ -99,6 +100,36 @@ def protein_net_from_flax(net: nn.Module, params: Mapping) -> nn.Module:
     else:
         net.load_state_dict(state_dict_from_flax(params), strict=True)
     return net
+
+
+def _mapped(leaves: dict, mapping, flax_prefix: str = "", torch_prefix: str = "") -> dict:
+    """The state_dict entries of a converter mapping, from flattened Flax
+    leaves under ``flax_prefix``."""
+    return {torch_prefix + key: torch.tensor(
+        leaves[flax_prefix + path].T if tf == "T" else leaves[flax_prefix + path])
+        for key, path, tf in mapping}
+
+
+def mpnn_esm_from_flax(model: nn.Module, params: Mapping) -> nn.Module:
+    """Load the Flax ``params`` tree of a JAX ``MPNNESM`` (the frozen
+    ProteinMPNN and ESM2 and the combiner heads) into the port's
+    ``struct2seq.MPNNESM`` of the same config, in place; returns ``model``.
+    The MPNN tensors the reference declares but never uses keep their
+    values; every other tensor must be covered."""
+    from .protein import convert
+
+    cfg = model.cfg
+    leaves = dict(_flatten(params))
+    heads = _mapped(leaves, convert.mpnn_esm_heads_mapping())
+    mpnn = _mapped(leaves, convert.mpnn_mapping(cfg.mpnn), "mpnn_model/")
+    esm = _mapped(leaves, convert.esm2_mapping(cfg.esm), "esm/")
+    model.load_state_dict(heads, strict=True)
+    missing, unexpected = model.mpnn_model.load_state_dict(mpnn, strict=False)
+    if set(missing) != set(convert.mpnn_unused_keys(cfg.mpnn)) or unexpected:
+        raise KeyError(f"Flax tree does not cover the MPNN: missing {missing[:5]}, "
+                       f"unexpected {unexpected[:5]}")
+    model.esm.load_state_dict(esm, strict=True)
+    return model
 
 
 def flax_zeros(layer: nn.Module) -> nn.Module:

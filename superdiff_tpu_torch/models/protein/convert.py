@@ -9,11 +9,17 @@ classes and walked into plain dicts, enough for the checkpoint-embedded
 model config). The port's networks carry the reference's parameter names,
 so the state_dict loads by ``load_state_dict``.
 
+The struct2seq conditioner's frozen parts come as their own files: a
+ProteinMPNN CA pickle (:func:`load_mpnn_checkpoint`) and a local
+transformers ``EsmModel`` snapshot (:func:`load_esm2_snapshot`); the
+combiner heads ride in the Proteus checkpoint
+(:func:`extract_struct2seq_heads`).
+
 The mappings (reference key, Flax path, transform) serve one purpose here:
-carrying the JAX package's Flax trees of ``FrameDiffScoreNetwork`` and
-``ProteusScoreNetwork`` into the port (``models/from_jax.py``). The keys the
-reference forward never uses (``*_unused_keys``) have no Flax counterpart.
-The MPNN / ESM2 halves wait for ``struct2seq.py``.
+carrying the JAX package's Flax trees of ``FrameDiffScoreNetwork``,
+``ProteusScoreNetwork`` and ``MPNNESM`` into the port
+(``models/from_jax.py``). The keys the reference forward never uses
+(``*_unused_keys``) have no Flax counterpart.
 """
 
 from __future__ import annotations
@@ -250,6 +256,15 @@ def proteus_mapping(cfg):
                f"{ce_f}/template_pointwise_att/mha", gating=False)
     m += _attn(f"{ce_t}.template_columnwise_attention.mha",
                f"{ce_f}/template_columnwise_attention/mha", gating=True)
+    if cfg.struct2seq_enable:
+        # the struct2seq cross embedder (the combiner heads under
+        # embedding_layer.struct2seq_embedder.* are MPNNESM's: see
+        # mpnn_esm_heads_mapping)
+        se_t, se_f = f"{emb}.struct2seq_cross_embedder", f"{emb}/struct2seq_cross_embedder"
+        m += _attn(f"{se_t}.template_pointwise_att.mha",
+                   f"{se_f}/template_pointwise_att/mha", gating=False)
+        m += _attn(f"{se_t}.template_columnwise_attention.mha",
+                   f"{se_f}/template_columnwise_attention/mha", gating=True)
 
     tr = "score_model.trunk"
     for b in range(cfg.num_blocks):
@@ -313,3 +328,123 @@ def proteus_unused_keys(cfg):
                 f"{pt}.linear_2.weight", f"{pt}.linear_2.bias",
             ]
     return keys
+
+
+# ---------------------------------------------------------------------------
+# struct2seq: CA ProteinMPNN, ESM2 and the MPNN_ESM combiner heads
+# ---------------------------------------------------------------------------
+
+
+def mpnn_mapping(cfg):
+    """CA ProteinMPNN state_dict -> Flax ``ProteinMPNNCA`` paths (cfg:
+    ``struct2seq.MPNNConfig``)."""
+    m = _linear("features.embeddings.linear", "features/embeddings/linear")
+    m += [("features.edge_embedding.weight", "features/edge_embedding/kernel", _T)]
+    m += _ln("features.norm_edges", "features/norm_edges")
+    m += _linear("W_e", "W_e")
+    m += [("W_s.weight", "W_s/embedding", _ID)]
+    for i in range(cfg.num_encoder_layers):
+        t, f = f"encoder_layers.{i}", f"encoder_layers_{i}"
+        for lin in ("W1", "W2", "W3", "W11", "W12", "W13"):
+            m += _linear(f"{t}.{lin}", f"{f}/{lin}")
+        for n_ in ("norm1", "norm2", "norm3"):
+            m += _ln(f"{t}.{n_}", f"{f}/{n_}")
+        m += _linear(f"{t}.dense.W_in", f"{f}/dense/W_in")
+        m += _linear(f"{t}.dense.W_out", f"{f}/dense/W_out")
+    for i in range(cfg.num_decoder_layers):
+        t, f = f"decoder_layers.{i}", f"decoder_layers_{i}"
+        for lin in ("W1", "W2", "W3"):
+            m += _linear(f"{t}.{lin}", f"{f}/{lin}")
+        for n_ in ("norm1", "norm2"):
+            m += _ln(f"{t}.{n_}", f"{f}/{n_}")
+        m += _linear(f"{t}.dense.W_in", f"{f}/dense/W_in")
+        m += _linear(f"{t}.dense.W_out", f"{f}/dense/W_out")
+    return m + _linear("W_out", "W_out")
+
+
+def mpnn_unused_keys(cfg):
+    """Declared but unused in the reference CA forward: ``W_v`` (h_V starts
+    from zeros) and the features' ``node_embedding`` / ``norm_nodes``."""
+    return ["W_v.weight", "W_v.bias", "features.node_embedding.weight",
+            "features.norm_nodes.weight", "features.norm_nodes.bias"]
+
+
+def load_mpnn_checkpoint(path: str) -> Tuple[Dict[str, torch.Tensor], int]:
+    """A ProteinMPNN CA weights file (``v_48_020.pt``, a torch pickle
+    ``{'num_edges': k, 'model_state_dict': ...}``): (state_dict, k)."""
+    ckpt = torch.load(path, map_location="cpu", weights_only=False)
+    sd = {k: torch.as_tensor(v).detach() for k, v in ckpt["model_state_dict"].items()}
+    return sd, int(ckpt.get("num_edges", 48))
+
+
+def esm2_mapping(cfg):
+    """transformers ``EsmModel`` state_dict -> Flax ``ESM2`` paths (cfg:
+    ``struct2seq.ESM2Config``)."""
+    m = [("embeddings.word_embeddings.weight", "embed_tokens/embedding", _ID)]
+    for i in range(cfg.num_layers):
+        t, f = f"encoder.layer.{i}", f"layer_{i}"
+        m += _linear(f"{t}.attention.self.query", f"{f}/q")
+        m += _linear(f"{t}.attention.self.key", f"{f}/k")
+        m += _linear(f"{t}.attention.self.value", f"{f}/v")
+        m += _linear(f"{t}.attention.output.dense", f"{f}/out")
+        m += _ln(f"{t}.attention.LayerNorm", f"{f}/attn_ln")
+        m += _linear(f"{t}.intermediate.dense", f"{f}/fc1")
+        m += _linear(f"{t}.output.dense", f"{f}/fc2")
+        m += _ln(f"{t}.LayerNorm", f"{f}/ffn_ln")
+    return m + _ln("encoder.emb_layer_norm_after", "emb_layer_norm_after")
+
+
+def esm2_unused_keys(cfg):
+    """An ``EsmModel``'s position ids, rotary tables and contact head, which
+    MPNN_ESM does not read (it takes the raw attention maps)."""
+    return (["embeddings.position_ids", "contact_head.regression.weight",
+             "contact_head.regression.bias"]
+            + [f"encoder.layer.{i}.attention.self.rotary_embeddings.inv_freq"
+               for i in range(cfg.num_layers)])
+
+
+def load_esm2_state_dict(esm, sd: Dict[str, torch.Tensor]):
+    """Load an ``EsmModel`` state_dict into the port's ``ESM2`` (strict, the
+    unused keys dropped); returns ``esm``."""
+    unused = set(esm2_unused_keys(esm.cfg))
+    esm.load_state_dict({k: v for k, v in sd.items() if k not in unused}, strict=True)
+    return esm
+
+
+def load_esm2_snapshot(path: str):
+    """A local transformers ``EsmModel`` snapshot directory (e.g.
+    esm2_t33_650M_UR50D): (state_dict, ``struct2seq.ESM2Config``). Local
+    files only; transformers is imported here."""
+    from transformers.models.esm import EsmModel
+
+    from .struct2seq import ESM2Config
+
+    hf = EsmModel.from_pretrained(path, local_files_only=True, add_pooling_layer=False)
+    c = hf.config
+    cfg = ESM2Config(vocab_size=int(c.vocab_size), embed_dim=int(c.hidden_size),
+                     num_layers=int(c.num_hidden_layers),
+                     attention_heads=int(c.num_attention_heads),
+                     intermediate_dim=int(c.intermediate_size),
+                     token_dropout=bool(c.token_dropout), layer_norm_eps=float(c.layer_norm_eps))
+    return {k: v.detach().float() for k, v in hf.state_dict().items()}, cfg
+
+
+STRUCT2SEQ_PREFIX = "embedding_layer.struct2seq_embedder."
+
+
+def mpnn_esm_heads_mapping():
+    """The four trained combiner heads a Proteus checkpoint carries for
+    MPNN_ESM (keys relative to ``STRUCT2SEQ_PREFIX``) -> Flax ``MPNNESM``
+    paths."""
+    return [("esm_s_combine", "esm_s_combine", _ID), ("esm_p_combine", "esm_p_combine", _ID),
+            ("esm_s_mlp.0.weight", "esm_s_mlp_ln/scale", _ID),
+            ("esm_s_mlp.0.bias", "esm_s_mlp_ln/bias", _ID),
+            *_linear("esm_s_mlp.1", "esm_s_mlp_0"), *_linear("esm_s_mlp.3", "esm_s_mlp_1"),
+            *_linear("esm_p_mlp", "esm_p_mlp")]
+
+
+def extract_struct2seq_heads(sd: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """The MPNN_ESM combiner heads of a Proteus state_dict, keyed relative to
+    ``STRUCT2SEQ_PREFIX``."""
+    return {k[len(STRUCT2SEQ_PREFIX):]: v for k, v in sd.items()
+            if k.startswith(STRUCT2SEQ_PREFIX)}

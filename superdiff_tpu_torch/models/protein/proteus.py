@@ -18,14 +18,18 @@ inference:
   ``lax.top_k`` breaks them).
 * The distogram_6d auxiliary heads; atom37 from the predicted frames.
 
-``struct2seq_enable`` (MPNN + ESM sequence conditioning) needs
-``models/protein/struct2seq.py``, which the port does not have yet: such a
-config raises.
+With ``struct2seq_enable`` the embedder also holds the
+``struct2seq_cross_embedder`` and, when one is given, the MPNN + ESM
+sequence conditioner (``struct2seq.MPNNESM``) as ``struct2seq_embedder``;
+its frozen parts stay out of the ``state_dict``, so a Proteus checkpoint
+(cross embedder and combiner heads) loads by ``load_state_dict``. A step
+runs the branch when its ``struct2seq`` flag is set.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import warnings
 from typing import Optional
 
 import torch
@@ -65,6 +69,10 @@ class ProteusConfig:
     sc_version: str = "template"
     sc_aatype: str = "mask"  # GLY-mask the self-condition sequence
     struct2seq_enable: bool = False
+    struct2seq_c_hidden_pt: int = 32
+    struct2seq_heads_pt: int = 4
+    struct2seq_c_hidden_cw: int = 64
+    struct2seq_heads_cw: int = 4
     # embed.template
     c_t: int = 64
     template_min_bin: float = 3.25
@@ -375,9 +383,10 @@ class TemplateEmbedder(nn.Module):
 
 
 class ProteusEmbedder(nn.Module):
-    """``score_network.Embedder``."""
+    """``score_network.Embedder``; ``struct2seq`` an optional
+    ``struct2seq.MPNNESM`` (used when ``cfg.struct2seq_enable``)."""
 
-    def __init__(self, cfg: ProteusConfig):
+    def __init__(self, cfg: ProteusConfig, struct2seq: Optional[nn.Module] = None):
         super().__init__()
         self.cfg = cfg
         c_node = cfg.t_embed_size + 1 + 21
@@ -389,8 +398,16 @@ class ProteusEmbedder(nn.Module):
         self.hotspot_embedder = flax_zeros(nn.Linear(2, cfg.node_embed_size))
         if cfg.sc_version == "template":
             self.template_embedder = TemplateEmbedder(cfg)
+        if cfg.struct2seq_enable:
+            if struct2seq is not None:
+                self.struct2seq_embedder = struct2seq
+            self.struct2seq_cross_embedder = TemplateCrossEmbedder(
+                cfg.edge_embed_size, cfg.edge_embed_size, cfg.node_embed_size,
+                cfg.struct2seq_c_hidden_pt, cfg.struct2seq_heads_pt,
+                cfg.struct2seq_c_hidden_cw, cfg.struct2seq_heads_cw, cfg.inf)
 
-    def forward(self, batch: dict, t, fixed_mask, self_condition: Optional[dict]):
+    def forward(self, batch: dict, t, fixed_mask, self_condition: Optional[dict],
+                struct2seq=False, struct2seq_draws=None):
         cfg = self.cfg
         seq_idx = batch["residue_index"]
         b, n = seq_idx.shape
@@ -440,6 +457,21 @@ class ProteusEmbedder(nn.Module):
                                               sc_active, template_batch=template_batch)
             node = node + t_s
             edge = edge + t_z
+        # ``struct2seq``: a bool (the step's gate: False skips the branch) or
+        # a 0/1 tensor that runs it and scales its output, as JAX's traced flag
+        if cfg.struct2seq_enable and not (isinstance(struct2seq, bool) and not struct2seq):
+            if not hasattr(self, "struct2seq_embedder"):
+                warnings.warn("struct2seq enabled but no MPNN + ESM conditioner given; "
+                              "skipping ESM conditioning", stacklevel=2)
+            else:
+                esm_s, esm_p = self.struct2seq_embedder(self_condition, struct2seq_draws)
+                t_s, t_z = self.struct2seq_cross_embedder(
+                    esm_s, esm_p, node, edge, torch.ones((b, 1), device=dev))
+                if not isinstance(struct2seq, bool):
+                    flag = torch.as_tensor(struct2seq, dtype=torch.float32, device=dev)
+                    t_s, t_z = flag * t_s, flag * t_z
+                node = node + t_s
+                edge = edge + t_z
         return node, edge
 
 
@@ -555,18 +587,18 @@ class ProteusScoreNetwork(nn.Module):
     and atoms, and the node / edge embeddings a caller may carry as the next
     step's self-condition."""
 
-    def __init__(self, cfg: ProteusConfig):
+    def __init__(self, cfg: ProteusConfig, struct2seq: Optional[nn.Module] = None):
         super().__init__()
-        if cfg.struct2seq_enable:
-            raise NotImplementedError(
-                "struct2seq conditioning (struct2seq_enable) needs "
-                "superdiff_tpu_torch/models/protein/struct2seq.py, which is not ported yet")
         self.cfg = cfg
-        self.embedding_layer = ProteusEmbedder(cfg)
+        self.embedding_layer = ProteusEmbedder(cfg, struct2seq)
         self.score_model = ProteusIpaScore(cfg)
         self.auxiliary_heads = AuxiliaryHeads(cfg)
 
-    def forward(self, feats: dict, self_condition: Optional[dict] = None) -> dict:
+    def forward(self, feats: dict, self_condition: Optional[dict] = None,
+                struct2seq=False, struct2seq_draws=None) -> dict:
+        """``struct2seq``: this step's gate of the MPNN + ESM branch (see
+        ``ProteusEmbedder.forward``); ``struct2seq_draws`` the MPNN draws, one
+        ``struct2seq.mpnn_draws`` dict per sequence (else drawn)."""
         cfg = self.cfg
         node_mask = feats["res_mask"].float()
         fixed_mask = feats["fixed_mask"].float()
@@ -574,7 +606,8 @@ class ProteusScoreNetwork(nn.Module):
         diffuse_mask = (1.0 - fixed_mask) * node_mask
 
         init_node, init_edge = self.embedding_layer(feats, feats["t"], fixed_mask,
-                                                    self_condition)
+                                                    self_condition, struct2seq,
+                                                    struct2seq_draws)
         edge = init_edge * edge_mask[..., None]
         node = init_node * node_mask[..., None]
         init_node = node

@@ -214,7 +214,8 @@ class TransformerBlock(nn.Module):
             return x + self.ff_out(value * F.gelu(gate))
         return geglu_ffn_block(
             x.contiguous(), self.norm3.weight, self.norm3.bias, proj.weight,
-            proj.bias, self.ff_out.weight, self.ff_out.bias, eps=self.norm3.eps)
+            proj.bias, self.ff_out.weight, self.ff_out.bias, eps=self.norm3.eps,
+            approximate=False)
 
 
 class SpatialTransformer(nn.Module):

@@ -1,9 +1,16 @@
 // Fused LayerNorm + GEGLU feed-forward + residual, for Hopper (sm_90a).
 //
 // Replaces the TPU kernel superdiff_tpu/ops/pallas/geglu_ffn.py::_kernel
-// (called through _ffn_impl from geglu_ffn_block):
+// (called through _ffn_impl from geglu_ffn_block and geglu_ffn):
 //
 //   out = x + (v * gelu(g)) W2^T + b2,   [v | g] = LN(x) W1^T + b1
+//
+// or, unfused (geglu_ffn: no LayerNorm, no residual), out = (v * gelu(g))
+// W2^T + b2 with [v | g] = x W1^T + b1. Two compile-time choices of the
+// TPU kernel's: the gelu flavour (the erf polynomial below, or tanh as
+// jax.nn.gelu(approximate=True) computes it in fp32, with tanhf) and LN +
+// residual on or off (off: the LN launch is skipped, geglu_up reads x as
+// the TPU kernel's xn_ref[:] = x_ref[:] does, geglu_down adds no x).
 //
 // with the LayerNorm in fp32 (fast variance max(E[x^2] - mu^2, 0)), bf16
 // operands, fp32 accumulation and fp32 bias adds, LN(x) and the gated hidden
@@ -123,6 +130,17 @@ __device__ __forceinline__ void gelu_poly(float (&x)[K]) {
   for (int i = 0; i < K; ++i) x[i] *= fmaf(xc[i], p[i], 0.5f);
 }
 
+// gelu as jax.nn.gelu(approximate=True) computes it in fp32:
+// x * 0.5 (1 + tanh(sqrt(2 / pi) (x + 0.044715 x^3))), tanhf (not tanh.approx)
+template <int K>
+__device__ __forceinline__ void gelu_tanh(float (&x)[K]) {
+#pragma unroll
+  for (int i = 0; i < K; ++i) {
+    const float inner = 0.7978845608028654f * (x[i] + 0.044715f * (x[i] * x[i] * x[i]));
+    x[i] = x[i] * (0.5f * (1.0f + tanhf(inner)));
+  }
+}
+
 // two neighbouring values of a bias vector of T (bf16 or fp32), loaded as one
 template <typename T>
 using pair_t = std::conditional_t<sizeof(T) == 2, __nv_bfloat162, float2>;
@@ -195,16 +213,20 @@ geglu_ln(const bf16* __restrict__ x, const void* __restrict__ gamma,
   }
 }
 
-// The persistent GEMM of both products. UP: A = xn (M, K = C), B = W1
-// (2N, K), N = F, epilogue GEGLU -> h (tensor map `to`). Down: A = h
-// (M, K = F), B = W2 (N, K), N = C, residual x (map `tx`), out (`to`).
-// `bias`: b1 (2N) or b2 (N), of T (bf16 or fp32).
-template <bool UP, typename T>
+// The persistent GEMM of both products. UP: A = xn, or x unfused (M, K =
+// C), B = W1 (2N, K), N = F, epilogue GEGLU (tanh gelu if TANH) -> h
+// (tensor map `to`). Down: A = h (M, K = F), B = W2 (N, K), N = C, residual
+// x (map `tx`) if RESID, out (`to`). `bias`: b1 (2N) or b2 (N), of T (bf16
+// or fp32).
+template <bool UP, typename T, bool TANH = false, bool RESID = true>
 __device__ __forceinline__ void gemm_body(const CUtensorMap& ta, const CUtensorMap& tb,
                                           const CUtensorMap& tx, const CUtensorMap& to,
                                           const T* __restrict__ bias, int M, int N, int K) {
   using G = Cfg<UP>;
   constexpr int ST = G::STAGES, TN = G::TN, WN = G::N;
+  // geglu_down with the residual loads x into the staging tile; every other
+  // body waits for the last store to have read it (sempty)
+  constexpr bool LOADX = !UP && RESID;
   extern __shared__ unsigned char smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
   const uint32_t base = (raw + 1023) & ~1023u;  // the swizzle atoms want 1024-byte alignment
@@ -273,7 +295,7 @@ __device__ __forceinline__ void gemm_body(const CUtensorMap& ta, const CUtensorM
           tma_load(stg + b * G::SBOX, &tx, bar_xfull, n0 + 32 * b, m0, 0, 0);
         }
       };
-      if (!UP && cl < pairs) load_x(cl);
+      if (LOADX && cl < pairs) load_x(cl);
       for (int i = 0, p = cl; p < pairs; ++i, p += n_cl) {
         const int m0 = m0_of(p), n0 = p % n_n * TN, nb = boxes(n0);
         mbar_wait(bar_sfull, i & 1);
@@ -283,7 +305,7 @@ __device__ __forceinline__ void gemm_body(const CUtensorMap& ta, const CUtensorM
           }
           tma_store_wait_read();
         }
-        if constexpr (UP) {
+        if constexpr (!LOADX) {
           mbar_arrive(bar_sempty);
         } else if (p + n_cl < pairs) {
           load_x(p + n_cl);
@@ -345,7 +367,11 @@ __device__ __forceinline__ void gemm_body(const CUtensorMap& ta, const CUtensorM
           for (int hr = 0; hr < 2; ++hr) {
             float gv[2] = {acc[4 * (c + TN / 8) + 2 * hr] + bg.x,
                            acc[4 * (c + TN / 8) + 2 * hr + 1] + bg.y};
-            gelu_poly(gv);
+            if constexpr (TANH) {
+              gelu_tanh(gv);
+            } else {
+              gelu_poly(gv);
+            }
             *reinterpret_cast<uint32_t*>(stg_p + (c / 8) * kBox + (rr + 8 * hr) * 128 +
                                          (((c % 8) ^ g) << 4) + 4 * q) =
                 pack_bf16x2((acc[4 * c + 2 * hr] + bv.x) * gv[0],
@@ -353,7 +379,11 @@ __device__ __forceinline__ void gemm_body(const CUtensorMap& ta, const CUtensorM
           }
         }
       } else {
-        mbar_wait(bar_xfull, i & 1);
+        if constexpr (LOADX) {
+          mbar_wait(bar_xfull, i & 1);
+        } else {
+          mbar_wait(bar_sempty, (i & 1) ^ 1);
+        }
 #pragma unroll
         for (int c = 0; c < TN / 8; ++c) {
           if (c / 4 >= nb) continue;
@@ -363,9 +393,13 @@ __device__ __forceinline__ void gemm_body(const CUtensorMap& ta, const CUtensorM
             uint32_t* px = reinterpret_cast<uint32_t*>(
                 stg_p + (c / 4) * G::SBOX + (rr + 8 * hr) * 64 + (((c % 4) ^ (g / 2)) << 4) +
                 4 * q);
-            const float2 xv = __bfloat1622float2(*reinterpret_cast<__nv_bfloat162*>(px));
             const float* a = &acc[4 * c + 2 * hr];
-            *px = pack_bf16x2(a[0] + bb.x + xv.x, a[1] + bb.y + xv.y);
+            if constexpr (RESID) {
+              const float2 xv = __bfloat1622float2(*reinterpret_cast<__nv_bfloat162*>(px));
+              *px = pack_bf16x2(a[0] + bb.x + xv.x, a[1] + bb.y + xv.y);
+            } else {
+              *px = pack_bf16x2(a[0] + bb.x, a[1] + bb.y);
+            }
           }
         }
       }
@@ -379,19 +413,31 @@ __device__ __forceinline__ void gemm_body(const CUtensorMap& ta, const CUtensorM
   cluster_sync();  // no CTA leaves while the other may still arrive on its barriers
 }
 
-template <typename T>
+template <typename T, bool TANH>
 __global__ void __launch_bounds__(kThreads, 1)
 geglu_up(const __grid_constant__ CUtensorMap txn, const __grid_constant__ CUtensorMap tw1,
          const __grid_constant__ CUtensorMap th, const T* __restrict__ b1, int M, int F, int C) {
-  gemm_body<true>(txn, tw1, th, th, b1, M, F, C);
+  gemm_body<true, T, TANH>(txn, tw1, th, th, b1, M, F, C);
 }
 
-template <typename T>
+template <typename T, bool RESID>
 __global__ void __launch_bounds__(kThreads, 1)
 geglu_down(const __grid_constant__ CUtensorMap th, const __grid_constant__ CUtensorMap tw2,
            const __grid_constant__ CUtensorMap tx, const __grid_constant__ CUtensorMap tout,
            const T* __restrict__ b2, int M, int C, int F) {
-  gemm_body<false>(th, tw2, tx, tout, b2, M, C, F);
+  gemm_body<false, T, false, RESID>(th, tw2, tx, tout, b2, M, C, F);
+}
+
+// the instance of geglu_up / geglu_down for a bias dtype and a choice
+template <typename T>
+const void* up_kernel(bool tanh_gelu) {
+  return tanh_gelu ? reinterpret_cast<const void*>(geglu_up<T, true>)
+                   : reinterpret_cast<const void*>(geglu_up<T, false>);
+}
+template <typename T>
+const void* down_kernel(bool resid) {
+  return resid ? reinterpret_cast<const void*>(geglu_down<T, true>)
+               : reinterpret_cast<const void*>(geglu_down<T, false>);
 }
 
 // geometry row of a row-major bf16 (rows, cols) matrix as a 4-D tensor map
@@ -438,14 +484,17 @@ int max_clusters(const void* kernel, int smem) {
 }  // namespace sdt
 
 // vec_bf16: bit 0 gamma, bit 1 beta, bit 2 b1, bit 3 b2 stored as bf16 (else
-// fp32). C and F multiples of 64, M >= 1; xn (M, C) and h (M, F) scratch.
-// 0, a cudaError_t, or a refused tensor-map encoding's CUresult negated.
+// fp32). mode: bit 0 the tanh gelu (else the erf polynomial), bit 1 LN and
+// residual (else neither: gamma, beta and xn unused). C and F multiples of
+// 64, M >= 1; xn (M, C) and h (M, F) scratch. 0, a cudaError_t, or a
+// refused tensor-map encoding's CUresult negated.
 extern "C" int geglu_block_launch(const void* x, const void* gamma, const void* beta,
                                   const void* w1, const void* b1, const void* w2,
                                   const void* b2, void* xn, void* h, void* out, int M, int C,
-                                  int F, float eps, int vec_bf16, void* stream) {
+                                  int F, float eps, int vec_bf16, int mode, void* stream) {
   using namespace sdt::sm90;
   if (M < 1 || C % kCols || F % kCols) return static_cast<int>(cudaErrorInvalidValue);
+  const bool tanh_gelu = mode & 1, fused = mode & 2;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   // xn, W1, h, W2, x, out
   long long geom[6 * kGeomLen];
@@ -456,18 +505,16 @@ extern "C" int geglu_block_launch(const void* x, const void* gamma, const void* 
   matrix_geom(geom + 4 * kGeomLen, M, C, kRows, 32, 64);
   matrix_geom(geom + 5 * kGeomLen, M, C, kRows, 32, 64);
   CUtensorMap maps[6];
-  const void* const ptrs[6] = {xn, w1, h, w2, x, out};
+  const void* const ptrs[6] = {fused ? xn : x, w1, h, w2, x, out};
   if (const int err = encode_maps(maps, ptrs, geom)) return err;
   // the kernels for biases of the stored dtype, and how many clusters of
   // each fit on the card at once
   const bool b1_bf16 = vec_bf16 & 4, b2_bf16 = vec_bf16 & 8;
-  const void* up = b1_bf16 ? reinterpret_cast<const void*>(geglu_up<bf16>)
-                           : reinterpret_cast<const void*>(geglu_up<float>);
-  const void* down = b2_bf16 ? reinterpret_cast<const void*>(geglu_down<bf16>)
-                             : reinterpret_cast<const void*>(geglu_down<float>);
-  static int clusters[2][2] = {};  // [up / down][bias bf16]
-  int& up_clusters = clusters[0][b1_bf16];
-  int& down_clusters = clusters[1][b2_bf16];
+  const void* up = b1_bf16 ? up_kernel<bf16>(tanh_gelu) : up_kernel<float>(tanh_gelu);
+  const void* down = b2_bf16 ? down_kernel<bf16>(fused) : down_kernel<float>(fused);
+  static int clusters[2][2][2] = {};  // [up / down][bias bf16][tanh / residual]
+  int& up_clusters = clusters[0][b1_bf16][tanh_gelu];
+  int& down_clusters = clusters[1][b2_bf16][fused];
   if (up_clusters == 0) {
     cudaFuncSetAttribute(up, cudaFuncAttributeMaxDynamicSharedMemorySize, Cfg<true>::SMEM);
     up_clusters = max_clusters(up, Cfg<true>::SMEM);
@@ -476,12 +523,15 @@ extern "C" int geglu_block_launch(const void* x, const void* gamma, const void* 
     cudaFuncSetAttribute(down, cudaFuncAttributeMaxDynamicSharedMemorySize, Cfg<false>::SMEM);
     down_clusters = max_clusters(down, Cfg<false>::SMEM);
   }
-  const int lanes = C <= 320 ? 8 : C <= 640 ? 16 : 32, ln_rows = kLnThreads / lanes;
-  geglu_ln<<<(M + ln_rows - 1) / ln_rows, kLnThreads, 0, s>>>(
-      static_cast<const bf16*>(x), gamma, beta, vec_bf16, static_cast<bf16*>(xn), M, C, eps,
-      lanes);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
+  cudaError_t err;
+  if (fused) {
+    const int lanes = C <= 320 ? 8 : C <= 640 ? 16 : 32, ln_rows = kLnThreads / lanes;
+    geglu_ln<<<(M + ln_rows - 1) / ln_rows, kLnThreads, 0, s>>>(
+        static_cast<const bf16*>(x), gamma, beta, vec_bf16, static_cast<bf16*>(xn), M, C, eps,
+        lanes);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
   // pairs of row panels times column tiles: one cluster per pair
   const int m_pairs = ((M + kRows - 1) / kRows + 1) / 2;
   const int up_pairs = m_pairs * ((F + Cfg<true>::TN - 1) / Cfg<true>::TN);

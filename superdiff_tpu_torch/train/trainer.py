@@ -95,12 +95,15 @@ def make_train_step(optimizer: OptimizerSpec, loss_fn: Callable):
     """Build the DSM train step.
 
     ``loss_fn(sampler_state, batch, *, generator, eps) -> (loss,
-    next_sampler_state)`` (``core.dsm.make_dsm_loss``). Returns
+    next_sampler_state)`` (``core.dsm.make_dsm_loss``, or
+    ``se3_trainer.make_se3_dsm_loss`` for the protein score networks, whose
+    sampler state passes through unchanged). Returns
     ``step_fn(state, batch, *, eps=None) -> (state, loss)``, which updates
     ``state`` in place (and returns it): loss and gradients with the model
     in ``train()`` mode, elementwise clip, Adam update, the schedule's next
     rate, EMA ``ema * rate + p * (1 - rate)``, ``step + 1``, the new cursor.
-    ``eps`` (unit normals of the batch's shape) replaces the state
+    ``eps`` (the loss's draws: for the image DSM loss unit normals of the
+    batch's shape, for the SE(3) loss a dict) replaces the state
     generator's draw.
     """
 

@@ -6,8 +6,11 @@ On the Gaussian data N(0, s^2 I) with its exact score both integrators
 within 1e-5 relative, dopri5 with the same count of evaluations, and both
 with the analytic entropy within 2 %. On the tiny ScoreUNet (drawn non-zero
 weights, 16 px, batch 2) RK4 over 4 steps and dopri5 at rtol = atol = 1e-2
-within 1e-4 relative (the divergence is a JVP through the net, whose
-tangent sums round differently in the two frameworks).
+within 1e-4 relative, each estimator whole (the divergence is a JVP through
+the net, whose tangent sums round differently in the two frameworks), and
+dopri5 also within 1e-4 of JAX's integrator over the port's own vector
+field. The count of evaluations is checked first, so a different step grid
+is reported as such.
 """
 
 import jax
@@ -54,7 +57,7 @@ def test_gaussian_bpd_matches_jax(method):
     np.testing.assert_allclose(got.item(), expect, rtol=0.02)
 
 
-def test_score_unet_bpd_matches_jax():
+def _score_unet():
     tiny = dict(nf=16, ch_mult=(1, 2), num_res_blocks=1, attn_resolutions=(8,),
                 compute_dtype="float32", image_size=16)
     jmodel = jcifar.CifarConfig(**tiny).model()
@@ -64,6 +67,14 @@ def test_score_unet_bpd_matches_jax():
     x0 = np.random.default_rng(0).uniform(-1, 1, (2, 16, 16, 3)).astype(np.float32)
     key = jax.random.PRNGKey(3)
     probe = torch.from_numpy(np.array(jito.rademacher(key, x0.shape, jnp.float32)))
+    return jmodel, params, net, x0, key, probe
+
+
+@pytest.mark.parametrize("kw", [dict(method="rk4", n_steps=4),
+                                dict(method="dopri5", rtol=1e-2, atol=1e-2, t_0=1e-2)],
+                         ids=["rk4", "dopri5"])
+def test_score_unet_bpd_matches_jax(kw):
+    jmodel, params, net, x0, key, probe = _score_unet()
 
     def jax_apply(p):
         return lambda t, x: jmodel.apply({"params": p}, jnp.broadcast_to(t, (2, 1, 1, 1)), x)
@@ -71,15 +82,60 @@ def test_score_unet_bpd_matches_jax():
     def port_apply(t, x):
         return net(t.expand(2, 1, 1, 1), x)
 
-    for kw in (dict(method="rk4", n_steps=4),
-               dict(method="dopri5", rtol=1e-2, atol=1e-2, t_0=1e-2)):
-        ref, ref_nfe = jax.jit(lambda p, k, x: jbpd.make_bpd_estimator(
-            jax_apply(p), JVPSchedule(), **kw)(k, x))(params, key, jnp.asarray(x0))
-        got, nfe = bpd.make_bpd_estimator(port_apply, VPSchedule(), **kw)(
-            torch.from_numpy(x0), probe=probe)
-        assert np.isfinite(got.item())
-        np.testing.assert_allclose(got.item(), float(ref), rtol=1e-4, err_msg=str(kw))
-        assert nfe == int(ref_nfe)
+    ref, ref_nfe = jax.jit(lambda p, k, x: jbpd.make_bpd_estimator(
+        jax_apply(p), JVPSchedule(), **kw)(k, x))(params, key, jnp.asarray(x0))
+    got, nfe = bpd.make_bpd_estimator(port_apply, VPSchedule(), **kw)(
+        torch.from_numpy(x0), probe=probe)
+    assert nfe == int(ref_nfe)
+    assert np.isfinite(got.item())
+    np.testing.assert_allclose(got.item(), float(ref), rtol=1e-4, err_msg=str(kw))
+
+
+def test_score_unet_dopri5_matches_jax_controller():
+    """dopri5 at rtol = atol = 1e-2 on the tiny ScoreUNet: the port's
+    estimator against JAX's ``odeint_dopri5`` (jitted, so with XLA's fused
+    multiply-adds) integrating the same vector field, the port's, called
+    back from JAX. With the field shared, the two controllers must take the
+    same steps and land within 1e-4 relative: this holds the controller
+    alone, where ``test_score_unet_bpd_matches_jax[dopri5]`` holds the
+    whole estimator, each framework with its own field."""
+    _, _, net, x0, key, probe = _score_unet()
+    kw = dict(rtol=1e-2, atol=1e-2, t_0=1e-2)
+    sched = VPSchedule()
+    dims = (1, 2, 3)
+
+    def port_apply(t, x):
+        return net(t.expand(2, 1, 1, 1), x)
+
+    def field(t, x):
+        t = torch.tensor(np.float32(t))
+        x = torch.from_numpy(np.array(x))
+
+        def dxdt(_x):
+            return sched.dlog_alpha_dt(t) * _x - sched.beta(t) * port_apply(t, _x)
+
+        with torch.no_grad():
+            dx, tangent = torch.func.jvp(dxdt, (x,), (probe,))
+        return dx.numpy(), torch.sum(tangent * probe, dim=dims).numpy()
+
+    shapes = (jax.ShapeDtypeStruct(x0.shape, jnp.float32), jax.ShapeDtypeStruct((2,), jnp.float32))
+
+    def jax_bpd(x):
+        y, nfe = jbpd.odeint_dopri5(
+            lambda t, y: jax.pure_callback(field, shapes, t, y[0]),
+            (x, jnp.zeros(2, jnp.float32)), kw["t_0"], 1.0, rtol=kw["rtol"], atol=kw["atol"])
+        x_1, delta_logp = y
+        d = x.size // 2
+        logp_0 = (-0.5 * jnp.sum(x_1**2, axis=dims) - 0.5 * d * jnp.log(2 * jnp.pi)
+                  + delta_logp)
+        return (-logp_0 / jnp.log(2.0) / d + 7.0).mean(), nfe
+
+    ref, ref_nfe = jax.jit(jax_bpd)(jnp.asarray(x0))
+    got, nfe = bpd.make_bpd_estimator(port_apply, sched, method="dopri5", **kw)(
+        torch.from_numpy(x0), probe=probe)
+    assert nfe == int(ref_nfe)
+    assert np.isfinite(got.item())
+    np.testing.assert_allclose(got.item(), float(ref), rtol=1e-4)
 
 
 def test_unknown_integrator_raises():

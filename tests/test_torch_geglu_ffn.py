@@ -1,7 +1,9 @@
-"""Port ``geglu_ffn_block`` (its plain version, CPU tensors) vs the JAX fused
-FFN sub-block: ``_reference_block`` and ``geglu_ffn_block`` with the Pallas
-kernel in interpret mode, exact erf gelu; and the port's forward-mode
-derivative vs ``jax.jvp``.
+"""Port ``geglu_ffn_block`` and ``geglu_ffn`` (their plain versions, CPU
+tensors) vs the JAX fused FFN: ``_reference_block`` / ``_reference`` and
+``geglu_ffn_block`` / ``geglu_ffn`` with the Pallas kernel in interpret mode,
+for both gelu flavours (the exact erf, and tanh, JAX's default, which the
+port's entries default to as well); and the port's forward-mode derivative
+vs ``jax.jvp``.
 
 C=64, F=256, M=256, fp32. The port keeps weights in PyTorch's Linear layout:
 w1 (2F, C) value half first, w2 (C, F), the transposes of the JAX
@@ -46,9 +48,13 @@ def _port_args(x, gamma, beta, w1, b1, w2, b2):
     return t(x), t(gamma), t(beta), t(w1.T), t(b1), t(w2.T), t(b2)
 
 
-def _port(arrays):
+def _port(arrays, approximate=False):
     with torch.no_grad():
-        return geglu_ffn_block(*_port_args(*arrays)).numpy()
+        return geglu_ffn_block(*_port_args(*arrays), approximate=approximate).numpy()
+
+
+def _unfused_args(x, gamma, beta, w1, b1, w2, b2):
+    return x, w1, b1, w2, b2
 
 
 def test_matches_jax_reference():
@@ -64,23 +70,89 @@ def test_matches_pallas_kernel_interpret():
     np.testing.assert_allclose(_port(arrays), np.asarray(ref), rtol=2e-5, atol=2e-5)
 
 
+def test_default_gelu_is_jax_default():
+    """Both entries default to the tanh gelu, as JAX's do."""
+    arrays = _inputs(5)
+    ref = jffn.geglu_ffn_block(*map(jnp.asarray, arrays), interpret=True)
+    with torch.no_grad():
+        got = geglu_ffn_block(*_port_args(*arrays)).numpy()
+    np.testing.assert_allclose(got, np.asarray(ref), rtol=1e-5, atol=1e-5)
+    ref = jffn.geglu_ffn(*map(jnp.asarray, _unfused_args(*arrays)), interpret=True)
+    with torch.no_grad():
+        got = geglu_ffn.geglu_ffn(*_unfused_args(*_port_args(*arrays))).numpy()
+    np.testing.assert_allclose(got, np.asarray(ref), rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("approximate", [True, False])
+def test_block_matches_jax_both_flavours(approximate):
+    """The block against JAX's reference and its Pallas kernel (interpret):
+    tanh within 1e-5 (the same fp32 formula), erf within 2e-5 of the
+    kernel (its polynomial)."""
+    arrays = _inputs(6)
+    jarr = tuple(map(jnp.asarray, arrays))
+    ref = jffn._reference_block(*jarr, 1e-5, approximate)
+    kern = jffn.geglu_ffn_block(*jarr, approximate=approximate, interpret=True)
+    got = _port(arrays, approximate)
+    np.testing.assert_allclose(got, np.asarray(ref), rtol=1e-5, atol=1e-5 if approximate else 2e-5)
+    np.testing.assert_allclose(got, np.asarray(kern), rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.parametrize("approximate", [True, False])
+def test_unfused_matches_jax(approximate):
+    """``geglu_ffn`` (no LN, no residual) against JAX's ``_reference`` and
+    its ``geglu_ffn`` in interpret mode, leading dims flattened."""
+    arrays = _unfused_args(*_inputs(7))
+    jarr = tuple(map(jnp.asarray, arrays))
+    ref = jffn._reference(*jarr, approximate)
+    kern = jffn.geglu_ffn(jarr[0].reshape(4, M // 4, C), *jarr[1:], approximate=approximate,
+                          interpret=True)
+    args = _unfused_args(*_port_args(*_inputs(7)))
+    with torch.no_grad():
+        got = geglu_ffn.geglu_ffn(args[0].reshape(4, M // 4, C), *args[1:],
+                                  approximate=approximate)
+    assert got.shape == (4, M // 4, C)
+    got = got.reshape(M, C).numpy()
+    np.testing.assert_allclose(got, np.asarray(ref), rtol=1e-5, atol=1e-5 if approximate else 2e-5)
+    np.testing.assert_allclose(got, np.asarray(kern).reshape(M, C), rtol=2e-5, atol=2e-5)
+
+
 def test_jvp_matches_jax():
     primals, tangents = _inputs(2), _inputs(3)
     _, ref = jax.jvp(lambda *a: jffn._reference_block(*a, 1e-5, False),
                      tuple(map(jnp.asarray, primals)), tuple(map(jnp.asarray, tangents)))
+    _, got = torch.func.jvp(lambda *a: geglu_ffn_block(*a, approximate=False),
+                            _port_args(*primals), _port_args(*tangents))
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("approximate", [True, False])
+def test_unfused_and_tanh_jvp_match_jax(approximate):
+    primals, tangents = _inputs(8), _inputs(9)
+    jp, jt = tuple(map(jnp.asarray, primals)), tuple(map(jnp.asarray, tangents))
+    _, ref = jax.jvp(lambda *a: jffn._reference(*a, approximate), _unfused_args(*jp),
+                     _unfused_args(*jt))
+    _, got = torch.func.jvp(lambda *a: geglu_ffn.geglu_ffn(*a, approximate=approximate),
+                            _unfused_args(*_port_args(*primals)),
+                            _unfused_args(*_port_args(*tangents)))
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=1e-4, atol=1e-4)
+    _, ref = jax.jvp(lambda *a: jffn._reference_block(*a, 1e-5, True), jp, jt)
     _, got = torch.func.jvp(geglu_ffn_block, _port_args(*primals), _port_args(*tangents))
     np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=1e-4, atol=1e-4)
 
 
 def test_cpu_tensors_take_the_plain_version():
     args = _port_args(*_inputs(4))
-    before = geglu_ffn_block.launches
+    before = dict(geglu_ffn_block.launches), dict(geglu_ffn.geglu_ffn.launches)
     out = geglu_ffn_block(args[0].reshape(4, M // 4, C), *args[1:])
-    assert geglu_ffn_block.launches == before
+    unf = geglu_ffn.geglu_ffn(*_unfused_args(*args), approximate=False)
+    assert (geglu_ffn_block.launches, geglu_ffn.geglu_ffn.launches) == before
     assert out.shape == (4, M // 4, C)
     assert torch.equal(out.reshape(M, C), _reference_block(*args))
+    assert torch.equal(unf, geglu_ffn._reference(*_unfused_args(*args), approximate=False))
     with pytest.raises(ValueError, match="CUDA"):
-        geglu_ffn._launch(*args, 1e-5)
+        geglu_ffn._launch(*args, 1e-5, True, True)
+    with pytest.raises(ValueError, match="CUDA"):
+        geglu_ffn._launch(args[0], None, None, *_unfused_args(*args)[1:], 1e-5, False, False)
 
 
 def _gelu_grid():

@@ -30,6 +30,11 @@ def test_import_pulls_in_no_jax_and_no_cuda():
         "import superdiff_tpu_torch.models.inception, superdiff_tpu_torch.pipelines.protein\n"
         "import superdiff_tpu_torch.models.protein.proteus, superdiff_tpu_torch.cli\n"
         "import superdiff_tpu_torch.models.protein.convert\n"
+        "import superdiff_tpu_torch.models.protein.struct2seq, superdiff_tpu_torch.data.pdb\n"
+        "import superdiff_tpu_torch.train.se3_trainer, superdiff_tpu_torch.eval.clip_metrics\n"
+        "import superdiff_tpu_torch.eval.struct_metrics, superdiff_tpu_torch.eval.novelty\n"
+        "import superdiff_tpu_torch.eval.self_consistency, superdiff_tpu_torch.eval.embed_viz\n"
+        "import superdiff_tpu_torch.utils.hub\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'flax', 'superdiff_tpu')]\n"
         "assert not bad, bad\n"
         "assert not torch.cuda.is_initialized()\n"
@@ -63,6 +68,34 @@ def test_protein_entry_points_default_to_the_card():
                 "cli.main(['protein', '--length', '4', '--num_t', '2', '--out_dir', "
                 "'/nonexistent/protein'])\n")
     assert proc.returncode != 0 and "CUDA" in proc.stderr
+
+
+@pytest.mark.parametrize("code", [
+    "from superdiff_tpu_torch import cli\n"
+    "cli.main(['sd', '--preset', 'tiny', '--num_inference_steps', '1', '--out_dir', "
+    "'/nonexistent/sd'])\n",
+    "from superdiff_tpu_torch import cli\n"
+    "cli.main(['cifar', '--mode', 'train', '--n_iters', '1', '--workdir', "
+    "'/nonexistent/cifar'])\n",
+    "from superdiff_tpu_torch.models.protein import struct2seq as s\n"
+    "s.init_mpnn_esm(s.MPNNESMConfig.tiny())\n",
+    "from superdiff_tpu_torch.models.protein import struct2seq as s\n"
+    "s.load_mpnn_esm(c_s=32, c_z=16)\n",
+    "import numpy as np\n"
+    "from superdiff_tpu_torch.eval import embed_viz\n"
+    "embed_viz.tm_affinity([np.zeros((4, 3)), np.ones((5, 3))])\n",
+])
+def test_new_entry_points_default_to_the_card(code):
+    """The ``sd`` and ``cifar`` commands, the struct2seq constructors and the
+    structure-map affinity run on ``cuda`` unless told otherwise: without a
+    card they raise instead of running on the CPU."""
+    import torch
+
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the defaults would run")
+    proc = _run(code)
+    assert proc.returncode != 0 and ("CUDA" in proc.stderr or "cuda" in proc.stderr), \
+        proc.stderr[-1500:]
 
 
 def test_build_without_nvcc_raises(monkeypatch, tmp_path):

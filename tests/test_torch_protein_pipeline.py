@@ -239,12 +239,15 @@ def test_cli_protein_end_to_end(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("arg", [["--mpnn_ckpt", "mpnn.pt"], ["--esm_dir", "esm2"],
-                                 ["--seq_nums", "8"]])
+                                 ["--seq_nums", "0"]])
 def test_cli_protein_struct2seq_options_raise(tmp_path, arg):
-    """The struct2seq options are JAX's arguments, but struct2seq is not
-    ported: setting one raises, naming the module, before anything runs."""
+    """The struct2seq options (JAX's arguments) are checked before anything
+    runs: a ProteinMPNN file or ESM2 directory that is not there, or no
+    sequence per call, ends the command with its message. (The options'
+    run with a struct2seq Proteus checkpoint: test_torch_struct2seq.py.)"""
     from superdiff_tpu_torch import cli
 
-    with pytest.raises(NotImplementedError, match="struct2seq.py"):
-        cli.main(["protein", "--device", "cpu", "--out_dir", str(tmp_path / "run"), *arg])
+    with pytest.raises(SystemExit, match=arg[0]):
+        cli.main(["protein", "--device", "cpu", "--out_dir", str(tmp_path / "run"),
+                  *[str(tmp_path / a) if a in ("mpnn.pt", "esm2") else a for a in arg]])
     assert not (tmp_path / "run").exists()

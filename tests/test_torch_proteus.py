@@ -250,11 +250,9 @@ def test_state_dict_equals_reference_schema(name, cls, cfg_cls):
     assert got == fx["schema"]
 
 
-# JAX's struct2seq head widths (struct2seq is not ported) and its
-# ``lta_enable``, which no code reads: the local triangle attention is always
-# built, and a checkpoint without it fails to load
-PROTEUS_UNREAD = ("struct2seq_c_hidden_pt", "struct2seq_heads_pt", "struct2seq_c_hidden_cw",
-                  "struct2seq_heads_cw", "lta_enable")
+# JAX's ``lta_enable``, which no code reads: the local triangle attention is
+# always built, and a checkpoint without it fails to load
+PROTEUS_UNREAD = ("lta_enable",)
 
 
 def test_proteus_config_matches_jax():
@@ -266,8 +264,19 @@ def test_proteus_config_matches_jax():
 
 
 def test_struct2seq_config_raises_naming_the_module():
-    with pytest.raises(NotImplementedError, match="struct2seq.py"):
-        ProteusScoreNetwork(dataclasses.replace(ProteusConfig.tiny(), struct2seq_enable=True))
+    """A struct2seq config builds its cross embedder; a step that asks for
+    the branch without an MPNN + ESM conditioner warns, naming struct2seq,
+    and runs without it, as JAX's does (the branch itself:
+    test_torch_struct2seq.py)."""
+    cfg = dataclasses.replace(ProteusConfig.tiny(), struct2seq_enable=True)
+    net = ProteusScoreNetwork(cfg).eval()
+    assert hasattr(net.embedding_layer, "struct2seq_cross_embedder")
+    feats = {k: t(v) for k, v in feats_np(1).items()}
+    with torch.no_grad():
+        off = net(feats)
+        with pytest.warns(UserWarning, match="struct2seq"):
+            on = net(feats, struct2seq=True)
+    assert torch.equal(off["pred_trans"], on["pred_trans"])
 
 
 def _write_reference_pickle(path, state_dict, model_conf):
