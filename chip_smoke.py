@@ -2,7 +2,7 @@
 """Chip smoke run of ``superdiff_tpu_torch`` on one NVIDIA GPU (H100, sm_90a).
 
     python3 chip_smoke.py [--steps 4] [--seed 0] [--cifar-steps 200]
-    python3 chip_smoke.py --phase8-only   # phase 8 alone (so --phase6-only, --phase7-only)
+    python3 chip_smoke.py --phase9-only   # phase 9 alone (so --phase6-only .. --phase8-only)
 
 Phases, in order; any failed check raises and the script exits non-zero:
 
@@ -41,7 +41,8 @@ Phases, in order; any failed check raises and the script exits non-zero:
    replayed) and the wrapper's host cost (host clock over launches without
    a synchronise). The step epilogues ``sd_or_step`` ((3, 4100), (8, 16384),
    (8, 36864), (8, 65536)) and ``fused_sde_step`` ((3, 10, 384),
-   (2, 16, 256), (2, 100, 3072), with and without ties) take their step
+   (2, 16, 256), (2, 100, 3072), and the 2-D walkthrough's (2, 512, 2), whose
+   rows of 2 take the kernel's scalar path; with and without ties) take their step
    scalars as 0-d CUDA tensors, as the captured samplers hand them over, and
    print beside their times the device time of an empty kernel on the same
    grid of clusters in the same kind of graph (the floor of one launch).
@@ -113,13 +114,14 @@ Phases, in order; any failed check raises and the script exits non-zero:
    recorded three times under torch.profiler with every count zeroed just
    before and read just after (the wrappers: 2 per per-step call): the
    kernels each wrapper's family ran on the device (the records that
-   started inside the recorded run), the most any recorded run saw, must
+   started inside the recorded run), the median of the recorded runs, must
    be its calls per step times the steps. One captured 512 px SD
    sampler run, one captured 768 px and one 1024 px step and 10 captured
    CIFAR SDE/OR steps (graphs built before) are traced with torch.profiler
    (three recorded runs each, after warm-ups): device time by kernel family,
-   the device's idle share, and the kernels each step replayed (the most
-   any recorded run saw: the tracer loses a record now and then), which
+   the device's idle share, and the kernels each step replayed (the median
+   of the recorded runs: the tracer loses a record now and then, and now and
+   then hands a run one more), which
    must be 1 ``sd_or_step``, 10 ``flash_mha_eod`` and 3 x 16
    ``geglu_ffn_block`` kernels per 512 px step (768 px: 5 ``_kernel``, 10
    other attention; 1024 px: 5 ``_kernel``, 10 ``flash_mha_eod``) and 1
@@ -138,14 +140,15 @@ Phases, in order; any failed check raises and the script exits non-zero:
    ``train`` call resuming to the expected step; 4 steps straight against
    2 + checkpoint + restore + 2 (bit for bit, or within 2 x the summed
    learning rates); one train step in bf16 on the card against fp32 on the
-   CPU (loss and gradients within 5e-2); ``fid_stats`` over the stand-in
-   with seed-drawn Inception weights written as a JAX-layout ``.npz``, the
+   CPU (loss and gradients within 5e-2); ``fid_stats`` over a 12 000-image
+   CIFAR-10 stand-in written as files (the synthetic 60 000 cut for the
+   script's time) with seed-drawn Inception weights written as a JAX-layout ``.npz``, the
    card's pool features within 1e-3 of the CPU's, Inception images/s with
    cuDNN TF32 off and on; ``evaluate_joint_fid`` over the two runs (OR,
    SDE, 200 steps, 300 samples) through the captured sampler, its wall and
    FID, its ``fused_sde_step`` wrapper calls (step 0 and the capture); then
    under torch.profiler 3 train steps (device time by family, idle share)
-   and two recorded ``evaluate_joint_fid`` runs of 10 steps x 2 batches,
+   and three recorded ``evaluate_joint_fid`` runs of 10 steps x 2 batches,
    whose ``fused_sde_step`` kernels on the device must be 20.
 7. SE(3) protein composition, in a fresh process (``--phase7-only``), after
    phase 6: ``SE3Diffuser.default()`` (IGSO(3) tables of 1000 sigmas x 1000
@@ -156,7 +159,8 @@ Phases, in order; any failed check raises and the script exits non-zero:
    ``IPAConfig.proteus_like()`` / ``framediff_like()``, every parameter
    drawn non-zero from ``--seed`` (``protein_nets``: the update heads
    scaled by 0.1); ``compose`` of the reference pair, fp32 with TF32 off,
-   ``OR`` at length 100, batch 1, num_t 500 uncut, then ``AND`` and
+   ``OR`` at length 100, batch 1, 100 steps (num_t 101, cut from 500 for
+   the script's time), then ``AND`` and
    ``mixture`` for 20 steps at length 100 and ``OR`` for 20 steps at length
    300 (cut: num_t 21): ms per step, wall and peak memory of each; every run
    finite, unit quaternions within 1e-5, kappa in [0, 1] (OR, mixture;
@@ -195,6 +199,26 @@ Phases, in order; any failed check raises and the script exits non-zero:
    ``fid_stats`` of a 300-image CIFAR-10 stand-in with seed-drawn
    Inception weights), on the card, each writing its outputs.
 
+9. the SD likelihood, FLD, the 2-D walkthrough and the utilities, in a
+   fresh process (``--phase9-only``), after phase 8. 9a: ``eval.nll.ode_nll``
+   through the full SD-1.x UNet (bf16, random weights), 512 px, latent batch
+   2, a seed-drawn uint8 batch encoded by the ``VAEEncoder``, 10 + 10 steps,
+   unguided and with guidance 7.5: finite outputs, 10 ``flash_mha_eod`` and
+   16 ``geglu_ffn_block`` per UNet primal (wrapper counts; kernels on the
+   device over an unguided one-step grid), the unguided run against its plain-torch
+   twin; ms per NLL step, walls, peak memory. 9b: FLD on seed-drawn
+   features at the notebook's protocol size (10 000 / 50 000 / 10 000, d
+   768): ``fld``, ``fld_repeated`` (x10), the
+   card against the CPU on a 1 000 / 5 000 / 1 000 subset. 9c: the 2-D
+   walkthrough in full (2 x 2000 training iterations, ``or_sde`` /
+   ``or_ode`` / ``avg_sde`` over 400 steps on 512 samples): ``or_sde``'s
+   mode fractions, 1 ``fused_sde_step`` per step on the device. 9d: one NLL
+   step under ``utils.profiling.trace``, its families by
+   ``utils.traceparse`` within 1 % of the profiler's device time,
+   ``utils.profiling.device_memory_stats`` against
+   ``torch.cuda.max_memory_allocated``, ``eval.aggregate`` without pandas,
+   and every NCSN norm and block on the card against the CPU (fp32).
+
 The line before the last is the kernel table as JSON, one row per TPU kernel:
 ``launches`` the launches over the run of the path the kernel serves, in
 calls of its wrapper: for ``sd_or_step``, ``flash_mha_eod`` and
@@ -219,14 +243,20 @@ from __future__ import annotations
 import argparse
 import json
 import math
-import re
+import os
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 OUT = ROOT / "chiprun_out"  # what the run writes besides its output
+sys.path.insert(0, str(ROOT))
+try:  # the one kernel-family taxonomy of every profile
+    from superdiff_tpu_torch.utils.traceparse import ATTN_OTHER, EOD, ONLINE, family
+except ImportError as e:
+    sys.exit(f"chip_smoke: superdiff_tpu_torch not found beside this script ({e})")
 PROMPTS = ("a cat", "a dog")
 
 # H100 SXM data sheet (dense): bf16 tensor cores, HBM, and the SFU exp2 rate
@@ -922,7 +952,10 @@ def check_fused_sde_step(dev):
     # the step scalars as the sampler hands them over: 0-d views of a device table
     host = (sched.dlog_alpha_dt(t), sched.beta(t), sched.sigma(t), dt)
     scal = torch.stack(host).to(dev).unbind()
-    for (n, b, d), per_step in (((3, 10, 384), 0), ((2, 16, 256), 0), ((2, 100, 3072), 1)):
+    # (2, 512, 2): the 2-D walkthrough's or_sde (phase 9c), D not a multiple
+    # of 4, so the kernel's scalar path
+    for (n, b, d), per_step in (((3, 10, 384), 0), ((2, 16, 256), 0), ((2, 100, 3072), 1),
+                                ((2, 512, 2), 0)):
         for ties in (True, False):
             g = torch.Generator(device=dev).manual_seed(n * b + d + ties)
             s, x, eps = (torch.randn(*shape, device=dev, generator=g)
@@ -979,37 +1012,14 @@ def unet_reference_check(mod, dev):
         raise AssertionError(f"UNet card-vs-CPU relative error {rel}")
 
 
-# kernel families of the profiles, and how many kernels one call of each
-# wrapper launches. The wgmma core's bodies are kernels of their own:
-# attn_sm90_online (mode 2, _kernel), attn_sm90_two_pass and attn_sm90_short;
-# flash_mha_eod alone launches the d-major two-pass body (DMAJOR = true).
-ONLINE = "attention, online (_kernel)"
-EOD = "attention, d-major (flash_mha_eod)"
-ATTN_OTHER = "attention, wgmma core, other"
+# how many kernels one call of each wrapper launches, by kernel family (the
+# taxonomy is utils/traceparse.py's). The wgmma core's bodies are kernels of
+# their own: attn_sm90_online (mode 2, _kernel), attn_sm90_two_pass and
+# attn_sm90_short; flash_mha_eod alone launches the d-major two-pass body
+# (DMAJOR = true).
 KERNELS_PER_CALL = {"sd_or_step": ("sd_or_step", 1), "flash_mha_eod": (EOD, 1),
                     "geglu_ffn_block": ("geglu_ffn_block", 3), "_kernel": (ONLINE, 1),
                     "_kernel_mh": (ATTN_OTHER, 1), "fused_sde_step": ("fused_sde_step", 1)}
-FAMILIES = (("fused_sde_step", ("fused_sde_step",)),
-            (ONLINE, ("attn_sm90_online",)),
-            (EOD, (re.compile(r"attn_sm90_two_pass<\d+, true"),)),
-            (ATTN_OTHER, ("attn_sm90",)),
-            ("geglu_ffn_block", ("geglu_",)),
-            ("sd_or_step", ("or_step",)),
-            ("convolution", ("conv", "fprop", "implicit", "cudnn", "nchw", "nhwc")),
-            ("gemm", ("gemm", "cutlass", "cublas", "nvjet")),
-            ("softmax", ("softmax",)),
-            ("reduction", ("reduce",)),
-            ("elementwise / copy / cat", ("elementwise", "vectorized", "copy", "cat",
-                                           "unrolled", "index", "fill")))
-
-
-def family(key):
-    """The family of a kernel named ``key`` in a profile."""
-    key = key.lower()
-    for fam, marks in FAMILIES:
-        if any(m.search(key) if isinstance(m, re.Pattern) else m in key for m in marks):
-            return fam
-    return "other"
 
 
 def device_kernels(events):
@@ -1139,6 +1149,21 @@ def score_unet_reference_check(model, cfg, dev):
         raise AssertionError(f"ScoreUNet card-vs-CPU relative error {rel}")
 
 
+def agreed(runs):
+    """{family: kernels} that recorded runs agree on: the median over an odd
+    count of runs. The tracer loses a kernel record now and then (one
+    ``fused_sde_step`` record of ten, in one of six repeated profiles) and
+    now and then hands a run one more (11 ``fused_sde_step`` records for a
+    10-step CIFAR run, in one of three), so one run alone can miscount
+    either way, and the most or the fewest of several too."""
+    import statistics
+
+    if len(runs) % 2 == 0:
+        raise ValueError(f"agreed: an odd count of recorded runs, not {len(runs)}")
+    fams = {fam for r in runs for fam in r}
+    return {fam: statistics.median(r.get(fam, 0) for r in runs) for fam in fams}
+
+
 def counted_runs(what, run, steps, cycles=3, **calls):
     """Launches on the device, by kernel wrapper, of a path's captured run
     as a user's first call makes it (``run()`` starts from no kept loop:
@@ -1149,9 +1174,9 @@ def counted_runs(what, run, steps, cycles=3, **calls):
     after: the wrappers must count 2 per per-step call (step 0 and the
     capture) and no other kernel. The launches are the kernels of each
     wrapper's family that the trace shows starting inside the recorded run
-    (:func:`recorded_kernels`), the most any recorded run saw (the tracer
-    loses a record now and then), over its kernels per call; they
-    must be ``calls[name]`` a step over ``steps`` steps. Returns {wrapper:
+    (:func:`recorded_kernels`), the median of the recorded runs
+    (:func:`agreed`), over its kernels per call; they must be
+    ``calls[name]`` a step over ``steps`` steps. Returns {wrapper:
     launches}."""
     import torch
     from torch.profiler import ProfilerActivity, profile, schedule
@@ -1170,44 +1195,44 @@ def counted_runs(what, run, steps, cycles=3, **calls):
             expect_counts(f"{what} (wrapper calls: step 0 and the capture)", read_counts(),
                           **{k: 2 * v for k, v in calls.items()})
             prof.step()
-    most = {}
+    runs = []
     for kernels in traced:
         seen = {}
         for fam, _, _, n in kernels:
             seen[fam] = seen.get(fam, 0) + n
-        most = {fam: max(most.get(fam, 0), seen.get(fam, 0)) for fam in {*most, *seen}}
+        runs.append(seen)
+    most = agreed(runs)
     got = {name: most.get(KERNELS_PER_CALL[name][0], 0) // KERNELS_PER_CALL[name][1]
            for name in calls}
-    log(f"  {what}: launches on the device (profiler, the most of {cycles} runs): " +
+    log(f"  {what}: launches on the device (profiler, the median of {cycles} runs): " +
         ", ".join(f"{k} {v}" for k, v in got.items()) + f" over {steps} steps")
     if got != {name: n * steps for name, n in calls.items()}:
         raise AssertionError(f"{what}: launches {got}, want {calls} a step over {steps}")
     return got
 
 
-def profile_by_family(run, path, cycles=3, cpu=True):
+def profile_by_family(run, path, cycles=3, cpu=True, warmup=1):
     """Device time of ``run()`` by kernel family (torch.profiler); the table
-    goes to ``path``. ``run()`` is recorded ``cycles`` times, each after an
-    unrecorded run while the tracer warms up; ``cpu=False`` records the
+    goes to ``path``. ``run()`` is recorded ``cycles`` times, each after
+    ``warmup`` unrecorded runs while the tracer warms up; ``cpu=False`` records the
     card's activity alone, not the host's op events. Returns ({family: ms}, wall ms
     under the profiler) of the first recorded run, and {family: kernels
-    launched}, the most any recorded run saw, each run's kernels those that
-    started inside it (:func:`recorded_kernels`): the tracer loses a kernel
-    record now and then (one ``fused_sde_step`` record of ten, in one of
-    six repeated profiles), so one run alone can miscount."""
+    launched}, the median of the recorded runs (:func:`agreed`), each run's
+    kernels those that started inside it (:func:`recorded_kernels`)."""
     import torch
     from torch.profiler import ProfilerActivity, profile, schedule
 
     traced, walls = [], []
     acts = [ProfilerActivity.CPU] * cpu + [ProfilerActivity.CUDA]
     with profile(activities=acts,
-                 schedule=schedule(wait=0, warmup=1, active=1, repeat=cycles),
+                 schedule=schedule(wait=0, warmup=warmup, active=1, repeat=cycles),
                  on_trace_ready=lambda p: traced.append((p.key_averages(),
                                                          recorded_kernels(p)))) as prof:
         for _ in range(cycles):
-            run()
-            torch.cuda.synchronize()
-            prof.step()
+            for _ in range(warmup):
+                run()
+                torch.cuda.synchronize()
+                prof.step()
             t0 = time.perf_counter()
             run()
             torch.cuda.synchronize()
@@ -1221,8 +1246,7 @@ def profile_by_family(run, path, cycles=3, cpu=True):
             totals[fam] = totals.get(fam, 0.0) + ms
             counts[fam] = counts.get(fam, 0) + n
         runs.append((totals, counts))
-    most = {fam: max(c.get(fam, 0) for _, c in runs) for _, c in runs for fam in c}
-    return runs[0][0], walls[0], most
+    return runs[0][0], walls[0], agreed([c for _, c in runs])
 
 
 def cifar_phase(dev, args):
@@ -1395,15 +1419,16 @@ def expect_counts(what, got, **want):
         raise AssertionError(f"{what}: launch counts {got} != {want}")
 
 
-def with_attn_impl(sd, mod, impl):
-    """``mod`` with its UNet behind another ``attn_impl``: the same
-    parameter tensors (assigned, not copied), so the same weights."""
+def with_attn_impl(sd, mod, impl, **changes):
+    """``mod`` with its UNet behind another ``attn_impl`` (and any other
+    config ``changes``, such as ``ffn_impl``): the same parameter tensors
+    (assigned, not copied), so the same weights."""
     import dataclasses
 
     import torch
 
     with torch.device("meta"):
-        unet = sd.SDUNet(dataclasses.replace(mod.unet.config, attn_impl=impl),
+        unet = sd.SDUNet(dataclasses.replace(mod.unet.config, attn_impl=impl, **changes),
                          dtype=mod.unet.dtype)
     unet.load_state_dict(mod.unet.state_dict(), assign=True)
     # the non-persistent buffers (timestep frequencies, upsampler taps) are
@@ -2312,17 +2337,24 @@ def train_eval_phase(dev, args):
     weights = inception_npz(weights_path, args.seed)
     log(f"  seed-drawn InceptionV3 weights written as a JAX-layout .npz: "
         f"{time.perf_counter() - t0:.1f} s")
+    # the statistics of a 12 000-image CIFAR-10 stand-in written as files
+    # (the synthetic stand-in's 60 000 cut for the script's time)
+    write_cifar10(work / "fid_data", 2000, args.seed)
+    os.environ["SUPERDIFF_DATA_DIR"] = str(work / "fid_data")
     t0 = time.perf_counter()
-    stats_dir = cifar.fid_stats(cfg_a, str(work), inception_weights=str(weights_path),
-                                device=dev)
-    torch.cuda.synchronize()
+    try:
+        stats_dir = cifar.fid_stats(cfg_a, str(work), inception_weights=str(weights_path),
+                                    device=dev)
+        torch.cuda.synchronize()
+    finally:
+        del os.environ["SUPERDIFF_DATA_DIR"]
     wall = time.perf_counter() - t0
     import numpy as np
 
     stats = {s: np.load(Path(stats_dir) / f"cifar10_{s}_stats.npz")["pool_3"]
              for s in ("train", "test")}
     n_imgs = sum(len(v) for v in stats.values())
-    log(f"  fid_stats (synthetic stand-in, train + test, seed-drawn Inception weights): "
+    log(f"  fid_stats (a CIFAR-10 stand-in, train + test, seed-drawn Inception weights): "
         f"{n_imgs} images in {wall:.3f} s ({n_imgs / wall:.1f} images/s, data included); "
         f"pool_3 {', '.join(f'{k} {v.shape}' for k, v in stats.items())}")
     inception_reference_check(weights, dev)
@@ -2368,7 +2400,7 @@ def train_eval_phase(dev, args):
                  lambda: cifar.evaluate_joint_fid(
                      short, str(work / "counted"), [str(work / "a"), str(work / "b")],
                      inception_weights=str(weights_path), device=dev),
-                 short.n_sample_steps * 2, cycles=2, fused_sde_step=1)
+                 short.n_sample_steps * 2, fused_sde_step=1)
     shutil.rmtree(work)
 
 
@@ -2596,7 +2628,8 @@ def protein_phase(dev, args):
 
     log_phase("  composed runs")
     run(100, 2)  # warm-up
-    runs = [("OR, length 100, batch 1, num_t 500 (uncut)", 100, 499, {}, "OR"),
+    runs = [("OR, length 100, batch 1, 100 steps (num_t 101, cut from 500)", 100, 100, {},
+             "OR"),
             ("AND, length 100, 20 steps (num_t 21, cut from 500)", 100, 20,
              dict(kappa_operator="AND"), "AND"),
             ("mixture, length 100, 20 steps (num_t 21, cut from 500)", 100, 20,
@@ -3046,6 +3079,386 @@ def struct2seq_training_phase(dev, args):
     torch.cuda.empty_cache()
     log_phase("  phase 8 done")
 
+# phase 9's sizes: full SD-1.x at 512 px, FLD at the notebook's protocol
+# size, the 2-D walkthrough as the example runs it
+NLL_HW, NLL_BATCH, NLL_STEPS, NLL_GUIDANCE = 512, 2, 10, 7.5
+NLL_PLAIN_TOL = 5e-2
+# the round trip's latents against plain torch: 9.6e-2 relative L2 on an
+# NVIDIA H100 80GB HBM3 at 700 W (10 + 10 steps, seed 0); the check prints
+# the first-order figure beside it; a kernel fault moves them by O(1)
+NLL_ROUNDTRIP_TOL = 0.25
+FLD_SIZES = (10_000, 50_000, 10_000, 768)  # generated, train, test, feature dim
+FLD_CHECK_SIZES = (1_000, 5_000, 1_000)
+FLD_TOL = 1e-4
+WALK_ITERS, WALK_STEPS, WALK_SAMPLES = 2000, 400, 512
+NCSN_TOL = 1e-4
+
+
+def nll_modules(dev, seed):
+    """The SD-1.x stack (random bf16 weights from ``seed``) and a VAEEncoder
+    of the same widths (seed + 1)."""
+    import torch
+
+    from superdiff_tpu_torch.models.from_jax import init_like_flax_
+    from superdiff_tpu_torch.models.sd.vae import VAEConfig, VAEEncoder
+    from superdiff_tpu_torch.pipelines import sd
+
+    mod = sd.build_sd_modules(seed, device=dev, dtype=torch.bfloat16)
+    with torch.device(dev):
+        enc = VAEEncoder(VAEConfig(), dtype=torch.bfloat16)
+    init_like_flax_(enc, torch.Generator(device=dev).manual_seed(seed + 1))
+    return sd, mod, enc.eval().requires_grad_(False)
+
+
+def unet_velocity(unet):
+    """``vel_fn(x, t, sigma, c)`` of the reference's ``get_ll_ode``: the
+    UNet's epsilon at the sigma-scaled input."""
+    import torch
+
+    def vel(x, t, sigma, c):
+        return unet(x / torch.sqrt(sigma**2 + 1.0), t.to(x.device), c)
+
+    return vel
+
+
+def expect_families(what, most, **want):
+    """Kernels on the device by family (``profile_by_family``'s agreed count)."""
+    got = {fam: most.get(fam, 0) for fam in want}
+    log(f"  {what}: kernels on the device (profiler) " +
+        ", ".join(f"{k} {v}" for k, v in got.items()))
+    if got != want:
+        raise AssertionError(f"{what}: kernels on the device {got} != {want}")
+
+
+def nll_phase(dev, args):
+    """9a: ``eval.nll.ode_nll`` through the full SD-1.x UNet (bf16, random
+    weights) at 512 px, latent batch 2, on ``SigmaGrid.euler_discrete(10)``
+    (the reference's 1000 steps cut to 10 each way): a seed-drawn uint8
+    batch through the ``VAEEncoder`` (its mean times the latent scale, as
+    ``get_ll_ode`` encodes), unguided and with guidance 7.5. Outputs finite;
+    every UNet primal launches 10 ``flash_mha_eod`` and 16
+    ``geglu_ffn_block`` (wrapper counts over both runs, and kernels on the
+    device over the unguided run on a one-step grid); against its twin with every attention and
+    FFN in plain torch (``attn_impl`` / ``ffn_impl`` ``"einsum"``) on the
+    card: one UNet forward at the encoded latents within ``NLL_PLAIN_TOL``
+    relative L2 (phase 3e's tolerance for one forward), the unguided run's
+    ``ll`` within ``NLL_PLAIN_TOL`` of |ll| and its ``latents_end`` within
+    ``NLL_ROUNDTRIP_TOL`` relative L2. The round trip multiplies each
+    forward's bf16 rounding by the sigma it spans: to first order the
+    latents move by sum |dsigma| (29.2 over the grid, whatever its step
+    count) times the forward's error times |v| / |latents_end|, and this
+    first-order figure is printed beside the distance. Then 9d's trace of
+    one step."""
+    import torch
+
+    from superdiff_tpu_torch.core import ito
+    from superdiff_tpu_torch.core.schedules import SigmaGrid
+    from superdiff_tpu_torch.eval import nll
+    from superdiff_tpu_torch.utils import profiling, traceparse
+
+    t0 = time.perf_counter()
+    sd, mod, enc = nll_modules(dev, args.seed)
+    torch.cuda.synchronize()
+    log(f"  SD stack and VAEEncoder (random bf16 weights): {time.perf_counter() - t0:.2f} s")
+    g = torch.Generator(device=dev).manual_seed(args.seed + 9)
+    images = torch.randint(0, 256, (NLL_BATCH, NLL_HW, NLL_HW, 3), generator=g, device=dev,
+                           dtype=torch.uint8)
+    with torch.no_grad():
+        moments = enc(images.float() / 127.5 - 1.0)
+        lat = moments[..., :moments.shape[-1] // 2] * mod.vae_scaling
+        ctx_obj = sd.encode_prompts(mod, ["a photo of a cat"] * NLL_BATCH)
+        ctx_unc = sd.encode_prompts(mod, [""] * NLL_BATCH)
+    del enc
+    finite("encoded latents", lat)
+    grid, n = SigmaGrid.euler_discrete(NLL_STEPS), NLL_STEPS
+    probes = ito.rademacher((2 * n,) + tuple(lat.shape), g, lat.dtype, dev)
+    vel = unet_velocity(mod.unet)
+    guidance = (ctx_obj, ctx_unc, NLL_GUIDANCE)
+
+    def run(velocity=vel, guided=False, grid=grid, probes=probes):
+        return nll.ode_nll(velocity, ctx_obj, lat, grid, probes=probes,
+                           guidance=guidance if guided else None)
+
+    float(run(grid=SigmaGrid.euler_discrete(1), probes=probes[:2])["ll"].sum())  # warmup
+    outs = {}
+    for guided in (False, True):
+        name = "guided" if guided else "unguided"
+        primals = 2 * n * (2 if guided else 1)
+        torch.cuda.reset_peak_memory_stats()
+        zero_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = run(guided=guided)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        expect_counts(f"ode_nll {name}, {n} + {n} steps ({primals} UNet primals)",
+                      read_counts(), flash_mha_eod=10 * primals, geglu_ffn_block=16 * primals)
+        finite(f"ode_nll {name}", *(out[k] for k in ("ll", "ll_path", "ll_base",
+                                                      "latents_end")))
+        log(f"  ode_nll {name}: {wall:.3f} s, {wall * 1e3 / (2 * n):.1f} ms per NLL step, "
+            f"peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; ll "
+            f"{[round(v, 3) for v in out['ll'].tolist()]} (path "
+            f"{[round(v, 3) for v in out['ll_path'].tolist()]}, base "
+            f"{[round(v, 3) for v in out['ll_base'].tolist()]})")
+        outs[name] = out
+    plain = with_attn_impl(sd, mod, "einsum", ffn_impl="einsum")
+    sigma0, t_0 = grid.sigmas[-2], torch.tensor(grid.timesteps[-1])
+    sig = torch.tensor(sigma0)
+    with torch.no_grad():
+        v, v_ref = (unet_velocity(u)(lat, t_0, sig, ctx_obj) for u in (mod.unet, plain.unet))
+    err_fwd = rel_l2(v, v_ref)
+    zero_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ref = run(velocity=unet_velocity(plain.unet))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    expect_counts("ode_nll unguided, plain torch throughout", read_counts())
+    got = outs["unguided"]
+    err_lat = rel_l2(got["latents_end"], ref["latents_end"])
+    err_ll = ((got["ll"] - ref["ll"]).abs().max() / ref["ll"].abs().max()).item()
+    span = sum(abs(a - b) for a, b in zip(grid.sigmas[:-1], grid.sigmas[1:])) * 2
+    first_order = span * err_fwd * (v_ref.norm() / ref["latents_end"].norm()).item()
+    log(f"  against plain torch: one UNet forward relative L2 {err_fwd:.3e} (tol "
+        f"{NLL_PLAIN_TOL}); the unguided run ({wall:.3f} s) latents_end relative L2 "
+        f"{err_lat:.3e} (tol {NLL_ROUNDTRIP_TOL}; first order {first_order:.3e}: sum |dsigma| "
+        f"{span:.2f} x the forward's error x |v| / |latents_end|), ll {err_ll:.3e} of |ll| "
+        f"(tol {NLL_PLAIN_TOL})")
+    if not (err_fwd < NLL_PLAIN_TOL and err_ll < NLL_PLAIN_TOL
+            and err_lat < NLL_ROUNDTRIP_TOL):
+        raise AssertionError(f"ode_nll against plain torch: forward {err_fwd}, latents "
+                             f"{err_lat}, ll {err_ll}")
+    del plain, ref, v, v_ref
+    one, p1 = SigmaGrid.euler_discrete(1), probes[:2]
+    # with the host's activity, which filters the records a cycle is handed
+    # from the run before; a card-only profile of the guided step lost 15 %
+    # of its kernel records in both of its cycles (an H100 80GB HBM3 at
+    # 700 W), and a host-recorded one is the slowest part of the phase, so
+    # the guided run's launches are its wrappers' counts above
+    # no warm-up runs between the three recorded ones (the step has run
+    # before): the median of three covers a record the tracer drops
+    _, _, most = profile_by_family(lambda: run(grid=one, probes=p1),
+                                   OUT / "chip_smoke_nll_profile.txt", warmup=0)
+    expect_families("ode_nll unguided, one step each way (2 UNet primals)", most,
+                    **{EOD: 20, "geglu_ffn_block": 96})
+    log_phase("  9d: one NLL step under utils.profiling.trace, read by utils.traceparse")
+    with tempfile.TemporaryDirectory() as logdir:  # the trace is read here, not kept
+        with profiling.trace(logdir, host=False) as prof:
+            run(grid=one, probes=p1)
+            torch.cuda.synchronize()
+        per_op = traceparse.load_device_ops(logdir)
+    fams, total_us = traceparse.categorize(per_op)
+    prof_us = 1e3 * sum(ms for *_, ms, _ in device_kernels(prof.key_averages()))
+    log(f"  trace: {total_us / 1e3:.3f} ms of device time in {len(per_op)} kernel names; "
+        f"the profiler's {prof_us / 1e3:.3f} ms; families " +
+        ", ".join(f"{k} {v / 1e3:.3f}" for k, v in fams.most_common()))
+    if not (total_us > 0 and abs(total_us - prof_us) <= 0.01 * prof_us):
+        raise AssertionError(f"traceparse families {total_us} us != profiler {prof_us} us")
+    stats = profiling.device_memory_stats()
+    peak = stats["cuda:0"]["allocated_bytes.all.peak"]
+    log(f"  device_memory_stats: peak {peak / 2**30:.3f} GiB "
+        f"(torch.cuda.max_memory_allocated {torch.cuda.max_memory_allocated() / 2**30:.3f})")
+    if peak != torch.cuda.max_memory_allocated():
+        raise AssertionError(f"device_memory_stats peak {peak} != max_memory_allocated")
+    del mod, outs, got
+    torch.cuda.empty_cache()
+
+
+def fld_phase(dev, args):
+    """9b: FLD at the notebook's protocol size on seed-drawn features
+    (DINOv2's weights are not in the repository): generated 10 000, train
+    50 000, test 10 000, d 768, anisotropic Gaussians, the generated set
+    shifted by 0.05; ``fld`` (200 Adam steps), ``fld_repeated`` (x10,
+    subsets of 10 000). The card against the
+    port's own CPU ``fld`` on the first 1 000 / 5 000 / 1 000 rows (TF32
+    off) within ``FLD_TOL`` relative, the tolerance of the CPU tests
+    against JAX."""
+    import torch
+
+    from superdiff_tpu_torch.eval import fld
+
+    ng, ntr, nte, d = FLD_SIZES
+    g = torch.Generator(device=dev).manual_seed(args.seed + 21)
+    scale = torch.rand(d, generator=g, device=dev) + 0.5
+    draw = lambda rows, shift=0.0: torch.randn(rows, d, generator=g, device=dev) * scale + shift
+    train, test, gen = draw(ntr), draw(nte), draw(ng, 0.05)
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    val = fld.fld(gen, train, test, device=dev)
+    log(f"  fld ({ng} / {ntr} / {nte}, d {d}): {val:.6f} in {time.perf_counter() - t0:.2f} s")
+    if not math.isfinite(val):
+        raise AssertionError(f"fld: {val}")
+    t0 = time.perf_counter()
+    mean, std = fld.fld_repeated(gen, train, test, device=dev)
+    log(f"  fld_repeated (x10, subsets of 10 000): {mean:.6f} +- {std:.6f} in "
+        f"{time.perf_counter() - t0:.2f} s; peak {torch.cuda.max_memory_allocated() / 2**30:.2f} "
+        f"GiB")
+    if not (math.isfinite(mean) and math.isfinite(std)):
+        raise AssertionError(f"fld_repeated: {mean} +- {std}")
+    a, b, c = FLD_CHECK_SIZES
+    sub = (gen[:a], train[:b], test[:c])
+    card = fld.fld(*sub, device=dev)
+    t0 = time.perf_counter()
+    cpu = fld.fld(*(x.cpu() for x in sub), device="cpu")
+    rel = abs(card - cpu) / abs(cpu)
+    log(f"  fld {a} / {b} / {c}: card {card:.7f}, CPU {cpu:.7f} ({time.perf_counter() - t0:.1f} s"
+        f" on the CPU): relative {rel:.3e} (tol {FLD_TOL})")
+    if not rel <= FLD_TOL:
+        raise AssertionError(f"fld card {card} vs CPU {cpu}")
+    del train, test, gen, sub
+    torch.cuda.empty_cache()
+
+
+def walkthrough_phase(dev, args):
+    """9c: the 2-D walkthrough as ``python -m
+    superdiff_tpu_torch.examples.superposition_2d`` runs it: two MLP score
+    nets (hidden (128, 128)) trained 2000 iterations each at batch 256,
+    then ``or_sde``, ``or_ode``, ``avg_sde`` over 400 steps on 512 samples.
+    ``or_sde`` (the captured step loop) must put 0.4-0.6 of its samples in
+    the upper modes and 0.95 or more within 1 of a centre (the CPU run:
+    0.47-0.50 and 0.98 over four seeds), launch 1 ``fused_sde_step`` per
+    step (the wrappers: step 0 and the capture; the device: the
+    profiler over recorded first calls), and the other two no kernel."""
+    import torch
+
+    from superdiff_tpu_torch.examples import superposition_2d as s2d
+
+    models = []
+    for seed, which in enumerate(("up", "down")):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        models.append(s2d.train_model(which, WALK_ITERS, seed=seed, device=dev,
+                                      log=lambda m: log(f"  {m}")))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        log(f"  train_model({which!r}, {WALK_ITERS}): {wall:.2f} s "
+            f"({wall * 1e3 / WALK_ITERS:.3f} ms per iteration)")
+    x1 = torch.randn((WALK_SAMPLES, 2), generator=torch.Generator(device=dev).manual_seed(7),
+                     device=dev)
+    for name in s2d.COMPOSITIONS:
+        zero_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        x0, logq, nfe = s2d.sample(models, name, x1, n_steps=WALK_STEPS,
+                                   generator=torch.Generator(device=dev).manual_seed(8))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        expect_counts(f"{name}, {WALK_STEPS} steps", read_counts(),
+                      **({"fused_sde_step": 2} if name == "or_sde" else {}))
+        finite(name, x0, logq)
+        up, near = s2d.up_fraction(x0), s2d.near_centre_fraction(x0)
+        log(f"  {name}: {wall:.3f} s ({wall * 1e3 / WALK_STEPS:.3f} ms per step), nfe {nfe}; "
+            f"up-mode fraction {up:.4f}, within 1 of a centre {near:.4f}")
+        if name == "or_sde" and not (0.4 <= up <= 0.6 and near >= 0.95):
+            raise AssertionError(f"or_sde modes: up {up}, near {near}")
+    counted_runs(f"2-D or_sde, {WALK_STEPS} steps",
+                 lambda: s2d.sample(models, "or_sde", x1, n_steps=WALK_STEPS,
+                                    generator=torch.Generator(device=dev).manual_seed(8)),
+                 WALK_STEPS, fused_sde_step=1)
+
+
+def ncsn_card_against_cpu(dev, seed):
+    """9d: every NCSN norm and block, plain and conditional, on the card
+    against the same module on the CPU, fp32 (TF32 off), at odd spatial
+    sizes, fusions that grow and shrink: within ``NCSN_TOL`` of the largest
+    output."""
+    import copy
+    import functools
+
+    import torch
+
+    from superdiff_tpu_torch.models import ncsn_layers as L
+    from superdiff_tpu_torch.models import normalization as N
+
+    torch.manual_seed(seed)
+    cond = functools.partial(N.ConditionalInstanceNorm2dPlus, num_classes=10)
+    c, h, w = 32, 33, 31
+    x, x2 = torch.randn(4, c, h, w), torch.randn(4, 16, 17, 16)
+    y = torch.randint(0, 10, (4,))
+    cases = {
+        "VarianceNorm2d": (N.VarianceNorm2d(c, bias=True), (x,)),
+        "InstanceNorm2d": (N.InstanceNorm2d(c), (x,)),
+        "InstanceNorm2dPlus": (N.InstanceNorm2dPlus(c), (x,)),
+        "ConditionalInstanceNorm2dPlus": (cond(c), (x, y)),
+        "GroupNorm": (N.get_normalization("GroupNorm")(c), (x,)),
+        "CRPBlock": (L.CRPBlock(c), (x,)),
+        "CondCRPBlock": (L.CondCRPBlock(c, cond), (x, y)),
+        "RCUBlock": (L.RCUBlock(c), (x,)),
+        "CondRCUBlock": (L.CondRCUBlock(c, cond), (x, y)),
+        "MSFBlock (grow)": (L.MSFBlock([c, 16], (h, w), c), ([x, x2],)),
+        "MSFBlock (shrink)": (L.MSFBlock([c, 16], (12, 11), c), ([x, x2],)),
+        "CondMSFBlock": (L.CondMSFBlock([c, 16], (h, w), c, cond), ([x, x2], y)),
+        "RefineBlock (end)": (L.RefineBlock([c, 16], (h, w), c, end=True), ([x, x2],)),
+        "CondRefineBlock (start)": (L.CondRefineBlock([c], (h, w), c, cond, start=True),
+                                    ([x], y)),
+        "ConvMeanPool": (L.ConvMeanPool(c, 16), (x[:, :, :32, :30],)),
+        "MeanPoolConv": (L.MeanPoolConv(c, 16), (x[:, :, :32, :30],)),
+    }
+    to_dev = lambda a: [t.to(dev) for t in a] if isinstance(a, list) else a.to(dev)
+    worst = 0.0
+    with torch.no_grad():
+        for name, (m, inputs) in cases.items():
+            m.eval()
+            ref = m(*inputs)
+            got = copy.deepcopy(m).to(dev)(*(to_dev(a) for a in inputs)).cpu()
+            err = (got - ref).abs().max().item() / ref.abs().max().item()
+            worst = max(worst, err)
+            if got.shape != ref.shape or not err <= NCSN_TOL:
+                raise AssertionError(f"{name}: card vs CPU {err} (tol {NCSN_TOL})")
+    log(f"  {len(cases)} NCSN norms and blocks, card vs CPU (fp32): worst {worst:.3e} of the "
+        f"largest output (tol {NCSN_TOL})")
+
+
+def aggregate_without_pandas():
+    """9d: ``eval.aggregate`` over a CSV tree in a temporary directory (the
+    card's machine has no pandas)."""
+    import csv
+
+    from superdiff_tpu_torch.eval import aggregate
+
+    rows = {"and": [(1.0, 3.0, 1.0), (2.0, 1.0, 1.0)], "sd_ab": [(0.3, 0.2, 0.2), (0.9, 0.7, 0.7)],
+            "sd_ba": [(0.2, 0.6, 0.2), (0.5, 0.5, 0.5)]}
+    with tempfile.TemporaryDirectory() as root:
+        for method, table in rows.items():
+            d = Path(root) / f"metrics_{method}"
+            d.mkdir()
+            with open(d / f"metrics_{method}_pair.csv", "w", newline="") as fh:
+                wr = csv.writer(fh)
+                wr.writerow(["clip_raw_score_1", "clip_raw_score_2", "min_clip"])
+                wr.writerows(table)
+        out = aggregate.summarize_methods(root, list(rows))
+    want_and = (1.0 + 1.0) / 2
+    got_and = out["methods"][0]["min_mean"]
+    jb = out["joint_baseline"]
+    log(f"  eval.aggregate: {len(out['methods'])} methods, and min_mean {got_and}, joint "
+        f"{jb['joint']}; pandas imported: {'pandas' in sys.modules}")
+    if got_and != want_and or jb["joint"] != (0.2 + 0.7) / 2:
+        raise AssertionError(f"eval.aggregate: {out}")
+
+
+def phase9(dev, args):
+    """Phase 9: the SD likelihood, FLD, the 2-D walkthrough and the
+    utilities on the card (9a-9d), at the sizes their docstrings give."""
+    import torch
+
+    log(f"  card: {card_line()}")
+    t_all = time.perf_counter()
+    for title, fn in (("9a: SD ODE likelihood (512 px, latent batch 2, 10 + 10 steps)",
+                       lambda: nll_phase(dev, args)),
+                      ("9b: FLD (10 000 / 50 000 / 10 000, d 768)", lambda: fld_phase(dev, args)),
+                      ("9c: the 2-D walkthrough (2 x 2000 iterations, 3 x 400 steps)",
+                       lambda: walkthrough_phase(dev, args)),
+                      ("9d: the NCSN layers on the card, eval.aggregate without pandas",
+                       lambda: (ncsn_card_against_cpu(dev, args.seed),
+                                aggregate_without_pandas()))):
+        log_phase(f"  {title}")
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.empty_cache()
+        log(f"  ({time.perf_counter() - t0:.1f} s)")
+    log_phase(f"  phase 9 done ({time.perf_counter() - t_all:.1f} s)")
+
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -3059,6 +3472,8 @@ def main(argv=None) -> int:
                     help="run phase 7 alone (main() starts it so, in a fresh process)")
     ap.add_argument("--phase8-only", action="store_true",
                     help="run phase 8 alone (main() starts it so, in a fresh process)")
+    ap.add_argument("--phase9-only", action="store_true",
+                    help="run phase 9 alone (main() starts it so, in a fresh process)")
     args = ap.parse_args(argv)
 
     import torch
@@ -3087,6 +3502,9 @@ def main(argv=None) -> int:
         return 0
     if args.phase8_only:
         struct2seq_training_phase(dev, args)
+        return 0
+    if args.phase9_only:
+        phase9(dev, args)
         return 0
     card = card_line()
     log(f"torch {torch.__version__} cuda {torch.version.cuda}; {torch.cuda.get_device_name(0)}")
@@ -3246,6 +3664,15 @@ def main(argv=None) -> int:
     log(f"  phase 8: {time.perf_counter() - t0:.1f} s, exit code {proc.returncode}")
     if proc.returncode != 0:
         raise AssertionError(f"phase 8 failed (exit code {proc.returncode})")
+
+    log_phase("phase 9: the SD likelihood, FLD, the 2-D walkthrough and the utilities "
+              "(in a fresh process)")
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, str(Path(__file__).resolve()), "--phase9-only",
+                           "--seed", str(args.seed)], timeout=400)
+    log(f"  phase 9: {time.perf_counter() - t0:.1f} s, exit code {proc.returncode}")
+    if proc.returncode != 0:
+        raise AssertionError(f"phase 9 failed (exit code {proc.returncode})")
 
     # the FFN kernel's tanh and unfused configurations: their own counts
     # over the main path's run (phase 3); no served path runs them

@@ -1,8 +1,35 @@
 """Evaluation: FID / Inception Score statistics, bits per dimension, the
-CLIP / ImageReward prompt metrics and the protein metrics (structure
-metrics, self-consistency, novelty, the structure-embedding map)."""
+SD ODE likelihood, FLD, TIFA, the CLIP / ImageReward prompt metrics, the
+cross-run aggregation and quality-table orderings, and the protein metrics
+(structure metrics, self-consistency, novelty, the structure-embedding
+map)."""
 
-from . import bpd, clip_metrics, embed_viz, fid, novelty, self_consistency, struct_metrics
+from . import (
+    aggregate,
+    bpd,
+    clip_metrics,
+    embed_viz,
+    fid,
+    fld,
+    nll,
+    novelty,
+    ordering,
+    self_consistency,
+    struct_metrics,
+    tifa,
+)
 
-__all__ = ["bpd", "clip_metrics", "embed_viz", "fid", "novelty", "self_consistency",
-           "struct_metrics"]
+__all__ = [
+    "aggregate",
+    "bpd",
+    "clip_metrics",
+    "embed_viz",
+    "fid",
+    "fld",
+    "nll",
+    "novelty",
+    "ordering",
+    "self_consistency",
+    "struct_metrics",
+    "tifa",
+]

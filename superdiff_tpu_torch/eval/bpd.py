@@ -15,6 +15,7 @@ float32, as in JAX.
 
 from __future__ import annotations
 
+import ctypes
 import math
 from typing import Callable, Optional, Sequence, Tuple
 
@@ -24,18 +25,6 @@ import torch
 from ..core import ito
 
 State = Sequence[torch.Tensor]
-
-
-def _axpy(y: State, dt, ks: Sequence[State], coefs: Sequence[float]) -> tuple:
-    """``y + dt * sum(c * k)`` leaf by leaf (zero coefficients included,
-    as the JAX sums include them)."""
-    out = []
-    for i, a in enumerate(y):
-        acc = 0
-        for c, k in zip(coefs, ks):
-            acc = acc + c * k[i]
-        out.append(a + dt * acc)
-    return tuple(out)
 
 
 def odeint_rk4(f: Callable, y0: State, t0: float, t1: float, n_steps: int) -> tuple:
@@ -79,6 +68,52 @@ def _fma32(a: np.float32, b: np.float32, c: np.float32) -> np.float32:
     return np.float32(np.float64(a) * np.float64(b) + np.float64(c))
 
 
+def _fma(a, b, c, dtype: torch.dtype) -> torch.Tensor:
+    """``a * b + c`` over tensors (or float32 scalars) rounded once to
+    ``dtype``: XLA's CPU code contracts a product into the add that takes
+    it, so each such pair of the jitted integrator rounds once."""
+    def wide(v):
+        return v.double() if torch.is_tensor(v) else float(v)
+
+    return (wide(a) * wide(b) + wide(c)).to(dtype)
+
+
+def _combo(ks: Sequence[torch.Tensor], coefs: Sequence[float], dtype: torch.dtype) -> torch.Tensor:
+    """``sum_j c_j k_j`` (``len(ks) >= 2``) as XLA's jitted loop rounds it:
+    ``fma(k_0, c_0, k_1 c_1)``, then ``fma(k_j, c_j, acc)`` in order, the
+    float32 coefficients zeros included."""
+    c = [np.float32(x) for x in coefs]
+    acc = _fma(ks[0], c[0], ks[1] * float(c[1]), dtype)
+    for k, cj in zip(ks[2:], c[2:]):
+        acc = _fma(k, cj, acc, dtype)
+    return acc
+
+
+def _stage(y: State, dt: np.float32, ks: Sequence[State], coefs: Sequence[float]) -> tuple:
+    """``y + dt * sum(c_j k_j)`` leaf by leaf, rounded as XLA's jitted loop
+    rounds it: one term folds ``dt * c`` into a float32 scalar first
+    (``fma(k, dt c, y)``), more terms round ``fma(dt, combo, y)``."""
+    out = []
+    for i, a in enumerate(y):
+        kk = [k[i] for k in ks]
+        if len(kk) == 1:
+            out.append(_fma(kk[0], np.float32(dt * np.float32(coefs[0])), a, a.dtype))
+        else:
+            out.append(_fma(dt, _combo(kk, coefs, a.dtype), a, a.dtype))
+    return tuple(out)
+
+
+_libm = ctypes.CDLL(None)
+_libm.powf.restype = ctypes.c_float
+_libm.powf.argtypes = (ctypes.c_float, ctypes.c_float)
+
+
+def _powf(x: np.float32, y: np.float32) -> np.float32:
+    """The C library's ``powf``, which XLA's CPU ``power`` calls (numpy's
+    float32 power rounds differently in about a quarter of the cases)."""
+    return np.float32(_libm.powf(float(x), float(y)))
+
+
 def odeint_dopri5(
     f: Callable,
     y0: State,
@@ -95,7 +130,12 @@ def odeint_dopri5(
     clip(0.9 err^(-1/5), 0.2, 5)`` with a scalar RMS error norm over the
     whole state (diffrax's default norm), ``dt`` cut to land on ``t1``, at
     most ``max_steps`` attempts. The state stays in ``y0``'s dtype; t, dt
-    and the controller are float32 scalars on the host.
+    and the controller are float32 scalars on the host. Each product that
+    XLA's CPU code contracts into an add (stage times, stage sums, the 5th
+    order solution, the error estimate, the norm's scale) rounds once, and
+    ``err^(-1/5)`` is the C library's ``powf``, so over a shared vector
+    field the two controllers take the same steps; the norm's sum keeps
+    torch's order.
 
     Returns ``(y, nfe)``: nfe counts every ``f`` evaluation, rejected
     steps included, as the reference reports it.
@@ -108,20 +148,24 @@ def odeint_dopri5(
         ks = [k1]
         for i in range(1, 7):
             tt = torch.tensor(_fma32(f32(_DP_C[i]), dt, t), dtype=torch.float32, device=dev)
-            ks.append(f(tt, _axpy(y, float(dt), ks, _DP_A[i])))
-        y5 = _axpy(y, float(dt), ks, _DP_B5)
-        err = tuple(a - a for a in y)  # zeros of the state's shapes
-        err = _axpy(err, float(dt), ks, [b5 - b4 for b5, b4 in zip(_DP_B5, _DP_B4)])
+            ks.append(f(tt, _stage(y, dt, ks, _DP_A[i])))
+        y5 = _stage(y, dt, ks, _DP_B5)
+        e_coefs = [b5 - b4 for b5, b4 in zip(_DP_B5, _DP_B4)]
+        err = tuple(_combo([k[i] for k in ks], e_coefs, a.dtype) * float(dt)
+                    for i, a in enumerate(y))
         return y5, err, ks[-1]  # FSAL: k7 == f(t + dt, y5)
 
     def err_norm(err, y_old, y_new) -> np.float32:
-        sq_sum, count = 0.0, 0
+        # XLA's rounding: scale = fma(max, rtol, atol); the leaf sums added
+        # in leaf order; the mean a product with float32(1 / count).
+        sq_sum, count = None, 0
         for e, a, b in zip(err, y_old, y_new):
-            scale = atol + rtol * torch.maximum(a.abs(), b.abs())
+            scale = _fma(torch.maximum(a.abs(), b.abs()), f32(rtol), f32(atol), e.dtype)
             r = (e / scale).float()
-            sq_sum = sq_sum + torch.sum(r * r)
+            s = torch.sum(r * r)
+            sq_sum = s if sq_sum is None else sq_sum + s
             count += r.numel()
-        return f32(torch.sqrt(sq_sum / count).item())
+        return f32(np.sqrt(f32(f32(sq_sum.item()) * f32(1.0 / count))))
 
     y = tuple(y0)
     k1 = f(torch.tensor(t0, dtype=torch.float32, device=dev), y)
@@ -131,7 +175,7 @@ def odeint_dopri5(
         dt = min(dt, t1 - t)
         y_new, err, k_last = step(t, y, k1, dt)
         e = err_norm(err, y, y_new)
-        factor = np.clip(f32(0.9) * np.power(max(e, f32(1e-10)), f32(-0.2)), f32(0.2), f32(5.0))
+        factor = np.clip(f32(0.9) * _powf(max(e, f32(1e-10)), f32(-0.2)), f32(0.2), f32(5.0))
         if e <= 1.0:
             t, y, k1 = f32(t + dt), y_new, k_last
         dt = f32(dt * factor)

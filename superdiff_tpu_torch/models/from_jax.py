@@ -132,6 +132,25 @@ def mpnn_esm_from_flax(model: nn.Module, params: Mapping) -> nn.Module:
     return model
 
 
+def ncsn_from_flax(module: nn.Module, params: Mapping) -> nn.Module:
+    """Load the Flax ``params`` tree of a JAX NCSN block or normalizer
+    (``models/ncsn_layers.py``, ``models/normalization.py``) into the
+    port's ``module`` of the same config, in place; returns ``module``.
+    The generic carrier, with the normalizers' (1, 1, 1, C) ``alpha`` /
+    ``gamma`` / ``beta`` as (C,) and a top-level ``GroupNorm_0``
+    dropped from the path."""
+    state = {}
+    for path, a in _flatten(params):
+        if path.startswith("GroupNorm_0/"):
+            path = path[len("GroupNorm_0/"):]
+        key, t = flax_leaf_to_torch(path, a)
+        if key.rsplit(".", 1)[-1] in ("alpha", "gamma", "beta"):
+            t = t.reshape(-1)
+        state[key] = t
+    module.load_state_dict(state, strict=True)
+    return module
+
+
 def flax_zeros(layer: nn.Module) -> nn.Module:
     """Mark a Linear or Conv2d whose Flax counterpart has
     ``kernel_init=zeros``: :func:`init_like_flax_` zeroes it."""

@@ -1,6 +1,6 @@
-"""Metric logging, timing and image grids."""
+"""Metric logging, timing, image grids, profiling and trace parsing."""
 
-from . import images
+from . import bench_io, images, profiling, traceparse
 from .logging import MetricLogger, Timer
 
-__all__ = ["MetricLogger", "Timer", "images"]
+__all__ = ["MetricLogger", "Timer", "bench_io", "images", "profiling", "traceparse"]

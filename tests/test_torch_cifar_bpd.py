@@ -96,9 +96,12 @@ def test_score_unet_dopri5_matches_jax_controller():
     estimator against JAX's ``odeint_dopri5`` (jitted, so with XLA's fused
     multiply-adds) integrating the same vector field, the port's, called
     back from JAX. With the field shared, the two controllers must take the
-    same steps and land within 1e-4 relative: this holds the controller
+    same steps and land within 2e-6 relative: this holds the controller
     alone, where ``test_score_unet_bpd_matches_jax[dopri5]`` holds the
-    whole estimator, each framework with its own field."""
+    whole estimator, each framework with its own field. The port rounds
+    every product XLA contracts into an add once and takes the C library's
+    ``powf``; what is left (1.2e-6 on this host) is the order of the error
+    norm's sum, which XLA's vectorised loop takes in eight lanes."""
     _, _, net, x0, key, probe = _score_unet()
     kw = dict(rtol=1e-2, atol=1e-2, t_0=1e-2)
     sched = VPSchedule()
@@ -135,7 +138,7 @@ def test_score_unet_dopri5_matches_jax_controller():
         torch.from_numpy(x0), probe=probe)
     assert nfe == int(ref_nfe)
     assert np.isfinite(got.item())
-    np.testing.assert_allclose(got.item(), float(ref), rtol=1e-4)
+    np.testing.assert_allclose(got.item(), float(ref), rtol=2e-6)
 
 
 def test_unknown_integrator_raises():

@@ -35,6 +35,13 @@ def test_import_pulls_in_no_jax_and_no_cuda():
         "import superdiff_tpu_torch.eval.struct_metrics, superdiff_tpu_torch.eval.novelty\n"
         "import superdiff_tpu_torch.eval.self_consistency, superdiff_tpu_torch.eval.embed_viz\n"
         "import superdiff_tpu_torch.utils.hub\n"
+        "import superdiff_tpu_torch.eval.nll, superdiff_tpu_torch.eval.fld\n"
+        "import superdiff_tpu_torch.eval.tifa, superdiff_tpu_torch.eval.ordering\n"
+        "import superdiff_tpu_torch.eval.aggregate, superdiff_tpu_torch.models.registry\n"
+        "import superdiff_tpu_torch.models.normalization, superdiff_tpu_torch.models.ncsn_layers\n"
+        "import superdiff_tpu_torch.examples.superposition_2d\n"
+        "import superdiff_tpu_torch.utils.profiling, superdiff_tpu_torch.utils.traceparse\n"
+        "import superdiff_tpu_torch.utils.bench_io\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'flax', 'superdiff_tpu')]\n"
         "assert not bad, bad\n"
         "assert not torch.cuda.is_initialized()\n"
@@ -84,11 +91,22 @@ def test_protein_entry_points_default_to_the_card():
     "import numpy as np\n"
     "from superdiff_tpu_torch.eval import embed_viz\n"
     "embed_viz.tm_affinity([np.zeros((4, 3)), np.ones((5, 3))])\n",
+    "import numpy as np\n"
+    "from superdiff_tpu_torch.eval import fld\n"
+    "fld.fld(np.zeros((4, 3)), np.ones((5, 3)), np.ones((5, 3)), n_steps=1)\n",
+    "import numpy as np\n"
+    "from superdiff_tpu_torch.eval import fld\n"
+    "fld.fit_mog_bandwidths(np.zeros((4, 3)), np.ones((5, 3)), n_steps=1)\n",
+    "from superdiff_tpu_torch.examples import superposition_2d as s\n"
+    "s.train_model('up', 1)\n",
+    "from superdiff_tpu_torch.examples import superposition_2d as s\n"
+    "s.main(['--n_iters', '1', '--n_steps', '1', '--outdir', '/nonexistent/s2d'])\n",
 ])
 def test_new_entry_points_default_to_the_card(code):
-    """The ``sd`` and ``cifar`` commands, the struct2seq constructors and the
-    structure-map affinity run on ``cuda`` unless told otherwise: without a
-    card they raise instead of running on the CPU."""
+    """The ``sd`` and ``cifar`` commands, the struct2seq constructors, the
+    structure-map affinity, FLD and its bandwidth fit, and the 2-D
+    walkthrough (its trainer and its ``main``) run on ``cuda`` unless told
+    otherwise: without a card they raise instead of running on the CPU."""
     import torch
 
     if torch.cuda.is_available():
