@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Chip smoke run of ``superdiff_tpu_torch`` on one NVIDIA GPU (H100, sm_90a).
 
-    python3 chip_smoke.py [--steps 4] [--seed 0] [--cifar-steps 200]
-    python3 chip_smoke.py --phase9-only   # phase 9 alone (so --phase6-only .. --phase8-only)
+    python3 chip_smoke.py [--steps 4] [--seed 0] [--cifar-steps 50]
+    python3 chip_smoke.py --phase9-only   # phase 9 alone (so --phase6-only .. --phase10-only)
 
 Phases, in order; any failed check raises and the script exits non-zero:
 
@@ -61,7 +61,7 @@ Phases, in order; any failed check raises and the script exits non-zero:
    be finite, kappa in [0, 1], the images uint8. Per-step ms and peak
    memory of the captured sampler (its first call, then the kept graph)
    and its eager twin are then timed in turns on ready contexts, and
-   50-step ``generate`` calls as users make them (a first captured call,
+   10-step ``generate`` calls as users make them (a first captured call,
    one replaying the kept graph, eager) in turns, held bit for bit.
    3b. the same at 768 px, 2 steps: per step 5 launches each of the
    online-softmax kernel (9216 tokens), the d-major kernel (2304 tokens)
@@ -126,7 +126,7 @@ Phases, in order; any failed check raises and the script exits non-zero:
    ``geglu_ffn_block`` kernels per 512 px step (768 px: 5 ``_kernel``, 10
    other attention; 1024 px: 5 ``_kernel``, 10 ``flash_mha_eod``) and 1
    ``fused_sde_step`` per CIFAR step; and a
-   64x64-latent SD UNet forward and a batch-4 ScoreUNet forward on the card
+   32x32-latent SD UNet forward and a batch-4 ScoreUNet forward on the card
    are each held against the same weights in fp32 on the host CPU, as is a
    full-width ``VAEEncoder`` forward at 256 px.
 6. CIFAR training and FID evaluation, in a fresh process (``main`` starts
@@ -140,12 +140,12 @@ Phases, in order; any failed check raises and the script exits non-zero:
    ``train`` call resuming to the expected step; 4 steps straight against
    2 + checkpoint + restore + 2 (bit for bit, or within 2 x the summed
    learning rates); one train step in bf16 on the card against fp32 on the
-   CPU (loss and gradients within 5e-2); ``fid_stats`` over a 12 000-image
+   CPU (loss and gradients within 5e-2); ``fid_stats`` over a 6 000-image
    CIFAR-10 stand-in written as files (the synthetic 60 000 cut for the
    script's time) with seed-drawn Inception weights written as a JAX-layout ``.npz``, the
    card's pool features within 1e-3 of the CPU's, Inception images/s with
    cuDNN TF32 off and on; ``evaluate_joint_fid`` over the two runs (OR,
-   SDE, 200 steps, 300 samples) through the captured sampler, its wall and
+   SDE, 200 steps, 200 samples) through the captured sampler, its wall and
    FID, its ``fused_sde_step`` wrapper calls (step 0 and the capture); then
    under torch.profiler 3 train steps (device time by family, idle share)
    and three recorded ``evaluate_joint_fid`` runs of 10 steps x 2 batches,
@@ -208,8 +208,8 @@ Phases, in order; any failed check raises and the script exits non-zero:
    device over an unguided one-step grid), the unguided run against its plain-torch
    twin; ms per NLL step, walls, peak memory. 9b: FLD on seed-drawn
    features at the notebook's protocol size (10 000 / 50 000 / 10 000, d
-   768): ``fld``, ``fld_repeated`` (x10), the
-   card against the CPU on a 1 000 / 5 000 / 1 000 subset. 9c: the 2-D
+   768): ``fld``, ``fld_repeated`` (x3), the
+   card against the CPU on a 500 / 2 500 / 500 subset. 9c: the 2-D
    walkthrough in full (2 x 2000 training iterations, ``or_sde`` /
    ``or_ode`` / ``avg_sde`` over 400 steps on 512 samples): ``or_sde``'s
    mode fractions, 1 ``fused_sde_step`` per step on the device. 9d: one NLL
@@ -218,6 +218,28 @@ Phases, in order; any failed check raises and the script exits non-zero:
    ``utils.profiling.device_memory_stats`` against
    ``torch.cuda.max_memory_allocated``, ``eval.aggregate`` without pandas,
    and every NCSN norm and block on the card against the CPU (fp32).
+10. the parallel tier, in a fresh process (``--phase10-only``), after phase
+   9, which spawns one process per visible card (W of them; NCCL over a
+   localhost rendezvous; 1 on the one-card machine, where every process
+   group and collective runs at size 1). A rank that raises stops the
+   others and fails the phase. 10a: data-parallel ``make_train_step`` of
+   ``vpsde_less_5`` (nf 128, batch 128 global, bf16, lr 2e-4), 10 steps on
+   seed-drawn batches and eps: the state bit-identical across ranks, loss
+   and parameters against the one-process run; step ms and the gradient
+   all-reduce's share. 10b: the CIFAR joint sampler (vpsdeA, 2 models,
+   batch 100, 20 SDE/OR steps) under ``score_mode="vmap"`` on
+   ``make_mesh(model=min(2, W))`` against ``"unroll"`` on one rank;
+   ``fused_sde_step`` once a step on each rank (wrapper counts and the
+   profiler's kernels). 10c: SD ``or`` at 512 px, latent batch 8 split over
+   ``data``, 2 eager steps: per step and rank ``sd_or_step`` 1,
+   ``flash_mha_eod`` 10, ``geglu_ffn_block`` 16; the gathered latents
+   against the one-process run. 10d: the SD-1.x UNet at published widths,
+   einsum lowering, fp32, split over tp = W against the replicated
+   forward: 64 all-reduces and 16 all-gathers a forward, no kernel. 10e:
+   ring attention at (24, 4096, 8, 40), fp32 and bf16, against plain
+   attention. 10f: the GPipe schedule over W ``TorchTransformerLayer``
+   stages at ``FrameDiffConfig()``'s widths, values and gradients against
+   the sequential stack. 10d-10f launch no kernel of the port.
 
 The line before the last is the kernel table as JSON, one row per TPU kernel:
 ``launches`` the launches over the run of the path the kernel serves, in
@@ -989,8 +1011,9 @@ def check_fused_sde_step(dev):
 
 
 def unet_reference_check(mod, dev):
-    """One 64x64-latent UNet forward on the card (bf16, kernels) against the
-    same weights in fp32 on the host CPU (plain versions)."""
+    """One 32x32-latent UNet forward on the card (bf16, kernels: 1024-token
+    rows through ``flash_mha_eod``) against the same weights in fp32 on the
+    host CPU (plain versions)."""
     import torch
 
     from superdiff_tpu_torch.models.sd.unet import SDUNet
@@ -999,14 +1022,14 @@ def unet_reference_check(mod, dev):
     cpu.load_state_dict({k: v.float().cpu() for k, v in mod.unet.state_dict().items()})
     cpu.eval().requires_grad_(False)
     g = torch.Generator().manual_seed(11)
-    x = torch.randn(1, 64, 64, 4, generator=g)
+    x = torch.randn(1, 32, 32, 4, generator=g)
     ctx = torch.randn(3, 77, 768, generator=g)
     with torch.no_grad():
         got = mod.unet(x.to(dev), torch.tensor(481.0), ctx.to(dev)).cpu()
         t0 = time.perf_counter()
         ref = cpu(x, torch.tensor(481.0), ctx)
     rel = ((got - ref).norm() / ref.norm()).item()
-    log(f"  UNet 64x64 (bf16 kernels on the card vs fp32 plain on the CPU, "
+    log(f"  UNet 32x32 (bf16 kernels on the card vs fp32 plain on the CPU, "
         f"{time.perf_counter() - t0:.1f} s): relative L2 error {rel:.3e} (tol 5e-2)")
     if not (torch.isfinite(got).all() and rel < 5e-2):
         raise AssertionError(f"UNet card-vs-CPU relative error {rel}")
@@ -2313,7 +2336,7 @@ def train_eval_phase(dev, args):
         f"{torch.backends.cudnn.benchmark}, cudnn.deterministic "
         f"{torch.backends.cudnn.deterministic}")
     n = args.train_steps
-    cut = dict(n_iters=n, save_every=n // 2, log_every=5, num_samples=300)
+    cut = dict(n_iters=n, save_every=n // 2, log_every=5, num_samples=200)
     cfg_a = cifar.CONFIGS["vpsde_less_5"](**cut)
     cfg_b = cifar.CONFIGS["vpsde_more_5"](seed=2, **cut)
     state_a = train_run(cfg_a, work / "a", dev, "A")
@@ -2337,9 +2360,9 @@ def train_eval_phase(dev, args):
     weights = inception_npz(weights_path, args.seed)
     log(f"  seed-drawn InceptionV3 weights written as a JAX-layout .npz: "
         f"{time.perf_counter() - t0:.1f} s")
-    # the statistics of a 12 000-image CIFAR-10 stand-in written as files
+    # the statistics of a 6 000-image CIFAR-10 stand-in written as files
     # (the synthetic stand-in's 60 000 cut for the script's time)
-    write_cifar10(work / "fid_data", 2000, args.seed)
+    write_cifar10(work / "fid_data", 1000, args.seed)
     os.environ["SUPERDIFF_DATA_DIR"] = str(work / "fid_data")
     t0 = time.perf_counter()
     try:
@@ -2863,11 +2886,12 @@ def struct2seq_composition(se3, dev, args):
 
 
 def synthetic_pdb_family(directory, count, n, seed):
-    """``count`` helices of ``n`` residues (100 degrees and 1.5 A a residue,
-    each with its own radius and noise, drawn from ``seed``), their axes
-    bent into a circle so that every coordinate stays under 100 A (the PDB
-    writer's columns hold no more: it writes each field a column early),
-    written as PDB files by the port's writer; returns their paths."""
+    """``count`` helices of ``n`` residues (100 degrees and 1.5 A a residue
+    along a straight axis from the origin, each with its own radius and
+    noise, drawn from ``seed``; at 128 residues the axis reaches 190 A, past
+    the 100 A that the writer's columns held before they kept the PDB
+    layout), written as PDB files by the port's writer; returns their
+    paths."""
     import numpy as np
     import torch
 
@@ -2875,19 +2899,17 @@ def synthetic_pdb_family(directory, count, n, seed):
 
     rng = np.random.default_rng(seed)
     paths = []
-    big = 1.5 * n / (2 * np.pi) / 0.9  # the axis circle's radius
     for k in range(count):
         idx = np.arange(n)
         theta = idx * np.deg2rad(100.0 + rng.normal(0, 3))
-        phi = idx * 1.5 / big
-        r = big + (2.3 + rng.normal(0, 0.1)) * np.cos(theta)
-        trans = np.stack([r * np.cos(phi), r * np.sin(phi), 2.3 * np.sin(theta)], -1)
+        r = 2.3 + rng.normal(0, 0.1)
+        trans = np.stack([r * np.cos(theta), r * np.sin(theta), 1.5 * idx], -1)
         trans += 0.3 * rng.standard_normal(trans.shape)
         rotvec = 0.3 * rng.standard_normal((n, 3)) + np.stack(
             [np.zeros(n), np.zeros(n), theta], -1)
         quat = rigid.rotmat_to_quat(rigid.rotvec_to_rotmat(
             torch.as_tensor(rotvec, dtype=torch.float32)))
-        rigids = rigid.rigid(quat, torch.as_tensor(trans - trans.mean(0), dtype=torch.float32))
+        rigids = rigid.rigid(quat, torch.as_tensor(trans, dtype=torch.float32))
         path = Path(directory) / f"helix_{k:03d}.pdb"
         path.write_text(backbone.to_pdb(backbone.to_atom37(rigids[None])[0]))
         paths.append(path)
@@ -3088,7 +3110,8 @@ NLL_PLAIN_TOL = 5e-2
 # the first-order figure beside it; a kernel fault moves them by O(1)
 NLL_ROUNDTRIP_TOL = 0.25
 FLD_SIZES = (10_000, 50_000, 10_000, 768)  # generated, train, test, feature dim
-FLD_CHECK_SIZES = (1_000, 5_000, 1_000)
+FLD_CHECK_SIZES = (500, 2_500, 500)
+FLD_REPEATS = 3  # fld_repeated's subsets (the notebook takes 10)
 FLD_TOL = 1e-4
 WALK_ITERS, WALK_STEPS, WALK_SAMPLES = 2000, 400, 512
 NCSN_TOL = 1e-4
@@ -3268,9 +3291,9 @@ def fld_phase(dev, args):
     """9b: FLD at the notebook's protocol size on seed-drawn features
     (DINOv2's weights are not in the repository): generated 10 000, train
     50 000, test 10 000, d 768, anisotropic Gaussians, the generated set
-    shifted by 0.05; ``fld`` (200 Adam steps), ``fld_repeated`` (x10,
-    subsets of 10 000). The card against the
-    port's own CPU ``fld`` on the first 1 000 / 5 000 / 1 000 rows (TF32
+    shifted by 0.05; ``fld`` (200 Adam steps), ``fld_repeated`` (x3,
+    subsets of 10 000; the notebook takes 10). The card against the
+    port's own CPU ``fld`` on the first 500 / 2 500 / 500 rows (TF32
     off) within ``FLD_TOL`` relative, the tolerance of the CPU tests
     against JAX."""
     import torch
@@ -3290,8 +3313,8 @@ def fld_phase(dev, args):
     if not math.isfinite(val):
         raise AssertionError(f"fld: {val}")
     t0 = time.perf_counter()
-    mean, std = fld.fld_repeated(gen, train, test, device=dev)
-    log(f"  fld_repeated (x10, subsets of 10 000): {mean:.6f} +- {std:.6f} in "
+    mean, std = fld.fld_repeated(gen, train, test, n_repeats=FLD_REPEATS, device=dev)
+    log(f"  fld_repeated (x{FLD_REPEATS}, subsets of 10 000): {mean:.6f} +- {std:.6f} in "
         f"{time.perf_counter() - t0:.2f} s; peak {torch.cuda.max_memory_allocated() / 2**30:.2f} "
         f"GiB")
     if not (math.isfinite(mean) and math.isfinite(std)):
@@ -3460,11 +3483,501 @@ def phase9(dev, args):
     log_phase(f"  phase 9 done ({time.perf_counter() - t_all:.1f} s)")
 
 
+# ---------------------------------------------------------------------------
+# phase 10: the parallel tier, one process per card
+
+P10_TRAIN_STEPS, P10_CIFAR_STEPS, P10_SD_STEPS = 10, 20, 2
+P10_PROFILE_STEPS = 5  # the steps of 10b's profiled runs
+P10_SD_HW = 512  # SD (10c) and the TP forward (10d)
+P10_RING_SHAPE = (24, 4096, 8, 40)  # (B, L, H, D)
+P10_PP_SHAPE = (16, 128)  # (batch, length) through the seq-transformer stages
+
+
+def rank_device():
+    """This rank's card (``parallel.distributed.initialize`` bound it)."""
+    import torch
+
+    return torch.device("cuda", torch.cuda.current_device())
+
+
+def p10_unet_config():
+    """The TP forward's UNet: SD-1.x's published widths on the einsum
+    lowering."""
+    from superdiff_tpu_torch.models.sd.unet import SDUNetConfig
+
+    return SDUNetConfig(attn_impl="einsum", ffn_impl="einsum")
+
+
+def phase10(args):
+    """Phase 10: the parallel tier on every visible card, one process a
+    card (``torch.multiprocessing``, start method spawn), NCCL over a
+    localhost rendezvous at a free port; world size W = the card count (1
+    on the one-card machine: NCCL, the process groups and every collective
+    still run, at size 1). A rank that raises fails the phase: the others
+    are stopped and the error goes up."""
+    import socket
+
+    import torch
+    import torch.multiprocessing as mp
+
+    from superdiff_tpu_torch.ops import _build
+
+    log(f"  card: {card_line()}")
+    _build.build_all()  # once here, not in W processes at once
+    world = torch.cuda.device_count()
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    t0 = time.perf_counter()
+    mp.start_processes(phase10_rank, args=(world, port, args), nprocs=world,
+                       start_method="spawn", join=True)
+    log_phase(f"  phase 10 done, W = {world} ({time.perf_counter() - t0:.1f} s in the ranks)")
+
+
+def phase10_rank(rank, world, port, args):
+    """One rank of phase 10: (a)-(f) in turn; rank 0 prints every rank's
+    figures, gathered after each run."""
+    import torch
+    import torch.distributed as dist
+
+    from superdiff_tpu_torch.parallel import distributed as D
+
+    t_start = time.perf_counter()
+    D.initialize(f"127.0.0.1:{port}", world, rank, device="cuda")
+    dev = rank_device()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    if rank == 0:
+        log(f"  W = {world}: {world} process(es), process group up in "
+            f"{time.perf_counter() - t_start:.1f} s")
+    for title, fn in (
+            (f"10a: DP training, vpsde_less_5 (nf 128, batch 128 global, bf16), "
+             f"{P10_TRAIN_STEPS} steps", p10_train),
+            (f"10b: CIFAR joint sampler (vpsdeA, 2 models, batch 100), score_mode vmap on "
+             f"model = min(2, W), {P10_CIFAR_STEPS} sde/or steps", p10_cifar),
+            (f"10c: SD or, 512 px, latent batch 8 over data, {P10_SD_STEPS} steps", p10_sd),
+            ("10d: TP SD-1.x UNet forward, 512 px, einsum lowering, fp32, tp = W", p10_tp),
+            ("10e: ring attention (24, 4096, 8, 40), fp32 and bf16", p10_ring),
+            ("10f: pipeline of FrameDiffConfig()'s seq-transformer layers, W stages",
+             p10_pipeline)):
+        if rank == 0:
+            log_phase(f"  {title}")
+        t0 = time.perf_counter()
+        zero_counts()
+        figures = fn(rank, world, dev, args)
+        torch.cuda.empty_cache()
+        every = [None] * world
+        dist.all_gather_object(every, figures)
+        if rank == 0:
+            for r, f in enumerate(every):
+                log(f"    rank {r}: " + "; ".join(f"{k} {v}" for k, v in f.items()))
+            log(f"    ({time.perf_counter() - t0:.1f} s)")
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def p10_expect(what, got, **want):
+    """:func:`expect_counts` on this rank (the message names it)."""
+    want = {name: want.get(name, 0) for name in got}
+    if got != want:
+        raise AssertionError(f"{what}: launch counts {got} != {want}")
+    return {k: v for k, v in got.items() if v}
+
+
+def p10_train(rank, world, dev, args):
+    """DP training: the same global batches and eps through
+    ``make_train_step(mesh=make_mesh(model=1))`` and, on every rank, through
+    the one-process step. The DP state is bit-identical across ranks
+    (rank 0's broadcast); against the one-process run the loss is within
+    rtol 1e-2 (bf16 forwards at another batch size take other cuDNN
+    algorithms, and cuDNN's weight gradients are not deterministic, W = 1
+    included) and every parameter within 2 x the learning rates summed (one
+    Adam update moves a parameter by at most about its rate)."""
+    import statistics
+
+    import torch
+
+    from superdiff_tpu_torch.core.dsm import make_dsm_loss
+    from superdiff_tpu_torch.core.schedules import VPSchedule
+    from superdiff_tpu_torch.parallel import mesh as M
+    from superdiff_tpu_torch.pipelines import cifar
+    from superdiff_tpu_torch.train import make_optimizer, make_train_step
+
+    cfg = cifar.CONFIGS["vpsde_less_5"]()
+    mesh = M.make_mesh(model=1)
+    n, i = M.data_sharding(mesh)
+    g = torch.Generator(device=dev).manual_seed(args.seed)
+    shape = (cfg.batch_size, cfg.image_size, cfg.image_size, cfg.num_channels)
+    batches = [{"image": torch.rand(shape, generator=g, device=dev) * 2 - 1}
+               for _ in range(P10_TRAIN_STEPS)]
+    eps = [torch.randn(shape, generator=g, device=dev) for _ in range(P10_TRAIN_STEPS)]
+    runs = {}
+    for dp in (True, False):
+        state, _, _ = fresh_train_state(cfg, dev, args.seed)
+        model = state.model
+        model.shard_dropout(*((n, i) if dp else (1, 0)))
+        loss_fn = make_dsm_loss(cifar._apply_fn(model), VPSchedule(),
+                                num_shards=n if dp else 1, shard_index=i if dp else 0)
+        opt = make_optimizer(cfg.lr, cfg.warmup, grad_clip=cfg.grad_clip)
+        step = make_train_step(opt, loss_fn, mesh=mesh if dp else None)
+        losses, ms = [], []
+        for b, e in zip(batches, eps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, loss = step(state, b, eps=e)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            losses.append(loss.item())
+        runs[dp] = (state, losses, statistics.median(ms[2:]))
+    state, losses, step_ms = runs[True]
+    ref, ref_losses, ref_ms = runs[False]
+    flat = torch.cat([p.detach().reshape(-1) for p in state.model.parameters()] +
+                     [v.reshape(-1) for v in state.params_ema.values()])
+    mine = flat.clone()
+    torch.distributed.broadcast(flat, 0)
+    same = (torch.equal(flat, mine), state.step == P10_TRAIN_STEPS + 1)
+    if not all(same):
+        raise AssertionError(f"rank {rank}: the DP state differs from rank 0's: {same}")
+    lrs = [cfg.lr * min(s / cfg.warmup, 1.0) for s in range(P10_TRAIN_STEPS)]
+    bound = 2 * sum(lrs)
+    dp_err = max((p - q).abs().max().item() for p, q in
+                 zip(state.model.parameters(), ref.model.parameters()))
+    loss_err = max(abs(a - b) / abs(b) for a, b in zip(losses, ref_losses))
+    if not (loss_err <= 1e-2 and dp_err <= bound and all(map(math.isfinite, losses))):
+        raise AssertionError(f"rank {rank}: DP vs one process: loss rel {loss_err}, params "
+                             f"{dp_err} (bound {bound})")
+    # the step's all-reduce alone: the flattened gradients (and the loss)
+    buf = torch.zeros(sum(p.numel() for p in state.model.parameters()) + 1, device=dev)
+    ar_ms = time_ms(lambda: mesh.all_reduce(buf, "data"), budget_ms=100.0)
+    return {"DP step ms": round(step_ms, 3), "one-process step ms": round(ref_ms, 3),
+            "all-reduce ms": round(ar_ms, 4), "all-reduce share": round(ar_ms / step_ms, 4),
+            "losses": [round(v, 4) for v in losses[:3]],
+            "loss rel err": f"{loss_err:.2e}", "param max err": f"{dp_err:.3e} (bound "
+            f"{bound:.2e})", "state": "bit-identical to rank 0's"}
+
+
+def p10_profiled(run, cycles=3):
+    """The median over ``cycles`` profiled runs of the kernels each family
+    launched (:func:`agreed`), each after an unrecorded run; the card's
+    activity alone (a host-recorded trace of the eager vmap steps is slow to
+    read back), so a cycle keeps every record (:func:`recorded_kernels`)
+    and the median rules out a stray one."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    traced = []
+    with profile(activities=[ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1, repeat=cycles),
+                 on_trace_ready=lambda p: traced.append(recorded_kernels(p))) as prof:
+        for _ in range(2 * cycles):
+            run()
+            torch.cuda.synchronize()
+            prof.step()
+    runs = []
+    for kernels in traced:
+        seen = {}
+        for fam, _, _, n in kernels:
+            seen[fam] = seen.get(fam, 0) + n
+        runs.append(seen)
+    return agreed(runs)
+
+
+def p10_cifar(rank, world, dev, args):
+    """The joint sampler under ``score_mode="vmap"`` on make_mesh(model =
+    min(2, W)) (each model rank runs its own denoiser, the scores
+    all-gathered; the batch split over data) against ``"unroll"`` on this
+    rank alone, on the same noise. A model axis of 1 keeps the captured
+    loop (at W = 1: step 0, the capture, 19 replays); a model axis above 1
+    runs eagerly (an all-gather in the step). ``fused_sde_step`` once a
+    step on each rank: the wrapper's count over the 20 steps, and the
+    kernels the profiler sees over a new generator's first call of 5 steps
+    (the median of three recorded runs)."""
+    import torch
+
+    from superdiff_tpu_torch.parallel import mesh as M
+    from superdiff_tpu_torch.pipelines import cifar
+
+    cfg = cifar.CONFIGS["vpsdeA"]()
+    walls, t_part = {}, time.perf_counter()
+
+    def part(name):
+        nonlocal t_part
+        torch.cuda.synchronize()
+        walls[name] = round(time.perf_counter() - t_part, 1)
+        t_part = time.perf_counter()
+
+    models = [draw_nonzero_(m, args.seed + k) for k, m in
+              enumerate(cifar.build_cifar_models([args.seed, args.seed + 1], cfg, dev))]
+    b, steps = cfg.eval_batch_size, P10_CIFAR_STEPS
+    labels = torch.arange(10, device=dev).repeat(b // 10 + 1)[:b]
+    mesh = M.make_mesh(model=min(2, world))
+    captured = mesh.shape["model"] == 1
+    g = torch.Generator(device=dev).manual_seed(args.seed)
+    shape = (b, cfg.image_size, cfg.image_size, cfg.num_channels)
+    noise = (torch.randn(shape, generator=g, device=dev),
+             torch.randn((steps,) + shape, generator=g, device=dev))
+    make = lambda: cifar.make_generator(models, cfg, n_steps=steps, labels=labels,  # noqa: E731
+                                        score_mode="vmap", mesh=mesh)
+    part("models")
+    gen = make()
+    float(gen(noise=noise)[0].sum())  # warm-up (a captured first call builds its graph)
+    part("vmap warm-up")
+    zero_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    x0, logq = gen(noise=noise)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / steps
+    calls = p10_expect(f"rank {rank}: 10b", read_counts(),
+                       fused_sde_step=0 if captured else steps)
+    ref = cifar.make_generator(models, cfg, n_steps=steps, labels=labels)
+    float(ref(noise=noise)[0].sum())
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rx0, rlogq = ref(noise=noise)
+    torch.cuda.synchronize()
+    ref_ms = (time.perf_counter() - t0) * 1e3 / steps
+    part("vmap run, unroll warm-up and run")
+    x_err = ((x0 - rx0).abs().max() / rx0.abs().max()).item()
+    q_err = ((logq - rlogq).abs().max() / rlogq.abs().max().clamp_min(1e-30)).item()
+    if not (torch.isfinite(x0).all() and x_err <= P10_CIFAR_TOL and q_err <= P10_CIFAR_TOL):
+        raise AssertionError(f"rank {rank}: vmap vs unroll: x0 {x_err}, logq {q_err} "
+                             f"(tol {P10_CIFAR_TOL})")
+    # a user's first call: captured (step 0, the capture, the replays) or
+    # eager, over fewer steps
+    short = P10_PROFILE_STEPS
+    seen = p10_profiled(lambda: cifar.make_generator(
+        models, cfg, n_steps=short, labels=labels, score_mode="vmap", mesh=mesh)(
+            noise=(noise[0], noise[1][:short])))
+    part("profiled runs")
+    dev_launches = seen.get("fused_sde_step", 0)
+    if dev_launches != short:
+        raise AssertionError(f"rank {rank}: fused_sde_step on the device {dev_launches}, "
+                             f"want {short} (1 a step)")
+    return {"mesh": dict(mesh.shape), "loop": "captured" if captured else "eager",
+            "wrapper calls": calls or "none (replayed graph)",
+            "fused_sde_step on the device": f"{dev_launches} / {short} steps",
+            "vmap mesh ms/step": round(ms, 3), "unroll one-rank ms/step": round(ref_ms, 3),
+            "x0 err": f"{x_err:.2e}", "logq err": f"{q_err:.2e}", "s": walls}
+
+
+# vmap against unroll: bf16 convolutions of the stacked and the plain
+# weights take other cuDNN algorithms; 20 steps carry the rounding
+P10_CIFAR_TOL = 5e-2
+
+
+def p10_sd(rank, world, dev, args):
+    """SD ``or`` with the latent batch split over ``data`` (W ranks, 8 / W
+    latents each, the default kernels, eager so every launch counts): per
+    step on each rank ``sd_or_step`` 1, ``flash_mha_eod`` 10,
+    ``geglu_ffn_block`` 16; the gathered latents against the one-process
+    run of all 8 on this rank (bit-identical at W = 1; else within 1e-1 of
+    the largest latent: two steps magnify a bf16 ulp to ~5 %, phase 3e)."""
+    import torch
+
+    from superdiff_tpu_torch.parallel import mesh as M
+    from superdiff_tpu_torch.pipelines import sd
+
+    mesh = M.make_mesh(model=1)
+    rows = lambda a, dim=0: M.shard_batch(a.movedim(dim, 0), mesh).movedim(0, dim)  # noqa: E731
+    mod = sd.build_sd_modules(args.seed, device=dev, dtype=torch.bfloat16)
+    cfg = sd.SDPipelineConfig(num_inference_steps=P10_SD_STEPS, height=P10_SD_HW,
+                              width=P10_SD_HW)
+    g = torch.Generator(device=dev).manual_seed(args.seed)
+    lat = (8, P10_SD_HW // 8, P10_SD_HW // 8, 4)
+    x0 = torch.randn(lat, generator=g, device=dev)
+    zs = torch.randn((P10_SD_STEPS,) + lat, generator=g, device=dev)
+    run = lambda noise, b: sd.generate(mod, "or", *PROMPTS, seed=args.seed,  # noqa: E731
+                                       batch_size=b, cfg=cfg, noise=noise, decode=False,
+                                       capture=False)
+    b = 8 // mesh.shape["data"]
+    run((rows(x0), rows(zs, 1)), b)  # warm-up
+    zero_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = run((rows(x0), rows(zs, 1)), b)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / P10_SD_STEPS
+    s = P10_SD_STEPS
+    calls = p10_expect(f"rank {rank}: 10c", read_counts(), sd_or_step=s, flash_mha_eod=10 * s,
+                       geglu_ffn_block=16 * s)
+    lat = mesh.all_gather(out["latents"], "data")
+    ref = run((x0, zs), 8)["latents"]
+    err = ((lat - ref).abs().max() / ref.abs().max()).item()
+    if not torch.isfinite(lat).all() or (world == 1 and err) or err > 1e-1:
+        raise AssertionError(f"rank {rank}: DP latents vs one process {err}")
+    return {"latents per rank": b, "launches": calls, "ms/step": round(ms, 3),
+            "latents vs one process": f"{err:.2e}"}
+
+
+class CollectiveCount:
+    """Counts ``torch.distributed``'s collective calls while in use."""
+
+    NAMES = ("all_reduce", "all_gather_into_tensor", "all_gather", "broadcast",
+             "reduce_scatter_tensor", "all_to_all", "batch_isend_irecv", "send", "recv")
+
+    def __enter__(self):
+        import torch.distributed as dist
+
+        self.counts = dict.fromkeys(self.NAMES, 0)
+        self.saved = {n: getattr(dist, n) for n in self.NAMES}
+        for n in self.NAMES:
+            def wrapped(*a, _n=n, **k):
+                self.counts[_n] += 1
+                return self.saved[_n](*a, **k)
+            setattr(dist, n, wrapped)
+        return self
+
+    def __exit__(self, *exc):
+        import torch.distributed as dist
+
+        for n, f in self.saved.items():
+            setattr(dist, n, f)
+
+
+def p10_tp(rank, world, dev, args):
+    """The SD-1.x UNet at published widths on the einsum lowering, fp32
+    (TF32 off), latent batch 2 at 512 px, 77-token contexts: the forward
+    split over tp = W (``place_tp``) against the replicated forward, within
+    1e-4 of the output's largest magnitude (the row-parallel partial sums
+    in another order). One forward: 64 all-reduces and 16 all-gathers (4
+    and 1 per spatial transformer), no other collective, no kernel launch."""
+    import copy
+
+    import torch
+
+    from superdiff_tpu_torch.models.sd.unet import SDUNet
+    from superdiff_tpu_torch.parallel import tp as T
+
+    ucfg = p10_unet_config()
+    with torch.device(dev):
+        unet = SDUNet(ucfg, dtype=torch.float32)
+    draw_nonzero_(unet, args.seed).eval()
+    g = torch.Generator(device=dev).manual_seed(args.seed)
+    x = torch.randn((2, P10_SD_HW // 8, P10_SD_HW // 8, 4), generator=g, device=dev)
+    ctx = torch.randn((2, 77, ucfg.cross_attention_dim), generator=g, device=dev)
+    t = torch.tensor(500.0, device=dev)
+    with torch.no_grad():
+        ref = unet(x, t, ctx)
+        rep_ms = time_ms(lambda: unet(x, t, ctx), budget_ms=300.0, most=5)
+        tp = T.place_tp(copy.deepcopy(unet), T.make_tp_mesh(1, world))
+        del unet
+        zero_counts()
+        with CollectiveCount() as cc:
+            out = tp(x, t, ctx)
+        calls = p10_expect(f"rank {rank}: 10d", read_counts())
+        tp_ms = time_ms(lambda: tp(x, t, ctx), budget_ms=300.0, most=5)
+    err = ((out - ref).abs().max() / ref.abs().max()).item()
+    counts = {k: v for k, v in cc.counts.items() if v}
+    if counts != {"all_reduce": 64, "all_gather_into_tensor": 16} or err > 1e-4:
+        raise AssertionError(f"rank {rank}: TP forward: collectives {counts}, err {err}")
+    return {"collectives": counts, "kernel launches": calls or 0, "err": f"{err:.2e}",
+            "TP forward ms": round(tp_ms, 3), "replicated forward ms": round(rep_ms, 3)}
+
+
+def p10_ring(rank, world, dev, args):
+    """``ring_attention`` over ("sp", W) at (B, L, H, D) = (24, 4096, 8,
+    40) against plain attention on this rank (fp32 einsums, TF32 off),
+    within 1e-5 absolute in fp32 (JAX's test's tolerance) and 3e-2 in bf16;
+    W - 1 rotations, one all-gather; no kernel launch."""
+    import torch
+
+    from superdiff_tpu_torch.parallel import mesh as M
+    from superdiff_tpu_torch.parallel.sp import ring_attention
+
+    mesh = M.Mesh((("sp", world),))
+    g = torch.Generator(device=dev).manual_seed(args.seed)
+    q, k, v = (torch.randn(P10_RING_SHAPE, generator=g, device=dev) for _ in range(3))
+    scale = P10_RING_SHAPE[-1] ** -0.5
+
+    def plain(a, b, c):
+        out = []
+        for i in range(0, a.shape[0], 4):
+            s = torch.einsum("bqhd,bkhd->bhqk", a[i:i + 4].float(), b[i:i + 4].float())
+            out.append(torch.einsum("bhqk,bkhd->bqhd", torch.softmax(s * scale, -1),
+                                    c[i:i + 4].float()))
+        return torch.cat(out)
+
+    figures = {}
+    zero_counts()
+    for name, dt, tol in (("fp32", torch.float32, 1e-5), ("bf16", torch.bfloat16, 3e-2)):
+        a, b, c = (t.to(dt) for t in (q, k, v))
+        with CollectiveCount() as cc:
+            out = ring_attention(a, b, c, mesh)
+        ref = plain(a, b, c)
+        err = (out.float() - ref).abs().max().item()
+        ring_ms = time_ms(lambda: ring_attention(a, b, c, mesh), budget_ms=200.0, most=5)
+        if out.dtype != dt or err > tol or cc.counts["batch_isend_irecv"] != world - 1:
+            raise AssertionError(f"rank {rank}: ring {name}: err {err} (tol {tol}), "
+                                 f"{cc.counts}")
+        figures[name] = f"err {err:.2e} (tol {tol:g}), {ring_ms:.3f} ms"
+    figures["kernel launches"] = p10_expect(f"rank {rank}: 10e", read_counts()) or 0
+    return figures
+
+
+def p10_pipeline(rank, world, dev, args):
+    """W ``TorchTransformerLayer(256, 4)`` stages (``FrameDiffConfig()``'s
+    seq transformer: node 256, 4 heads), one a rank, batch 16 x length 128,
+    8 microbatches: the pipelined output and the gradients of sum(out^2)
+    (the input's, and this rank's layer's) against the sequential stack on
+    this rank, fp32 (TF32 off), within 1e-4 of their largest magnitudes
+    (microbatches of 2 against 16 rows: cuBLAS sums in other orders)."""
+    import torch
+
+    from superdiff_tpu_torch.models.protein.framediff import FrameDiffConfig
+    from superdiff_tpu_torch.models.protein.framediff import TorchTransformerLayer
+    from superdiff_tpu_torch.parallel import mesh as M
+    from superdiff_tpu_torch.parallel.pp import pipeline
+
+    fcfg = FrameDiffConfig()
+    d, heads = fcfg.node_embed_size, fcfg.seq_tfmr_num_heads
+    torch.manual_seed(args.seed)
+    with torch.device(dev):
+        layers = [TorchTransformerLayer(d, heads) for _ in range(world)]
+        seq_layers = [TorchTransformerLayer(d, heads) for _ in range(world)]
+    for a, b in zip(layers, seq_layers):
+        b.load_state_dict(a.state_dict())
+    g = torch.Generator(device=dev).manual_seed(args.seed)
+    x = torch.randn(P10_PP_SHAPE + (d,), generator=g, device=dev)
+    mask = lambda xx: torch.ones(xx.shape[:2], device=dev)  # noqa: E731
+    stage = lambda layer, xx: layer(xx, mask(xx))  # noqa: E731
+    mesh = M.Mesh((("pp", world),))
+    zero_counts()
+    for _ in range(2):  # the first call sets up NCCL's point-to-point channels
+        for layer in layers:
+            layer.zero_grad(set_to_none=True)
+        xp = x.clone().requires_grad_(True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = pipeline(stage, layers, xp, mesh, n_micro=8)
+        (out ** 2).sum().backward()
+        torch.cuda.synchronize()
+        pp_ms = (time.perf_counter() - t0) * 1e3
+    xs = x.clone().requires_grad_(True)
+    y = xs
+    for layer in seq_layers:
+        y = layer(y, mask(y))
+    (y ** 2).sum().backward()
+
+    def rel(a, b):
+        return ((a - b).abs().max() / b.abs().max()).item()
+
+    errs = {"out": rel(out.detach(), y.detach()), "x grad": rel(xp.grad, xs.grad)}
+    mine, ref = layers[rank], seq_layers[rank]
+    errs["layer grads"] = max(rel(p.grad, q.grad) for p, q in
+                              zip(mine.parameters(), ref.parameters()))
+    calls = p10_expect(f"rank {rank}: 10f", read_counts())
+    if max(errs.values()) > 1e-4:
+        raise AssertionError(f"rank {rank}: pipeline vs sequential {errs}")
+    return {"errs": {k: f"{v:.2e}" for k, v in errs.items()}, "kernel launches": calls or 0,
+            "forward + backward ms (second call)": round(pp_ms, 3)}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--steps", type=int, default=4)
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--cifar-steps", type=int, default=200)
+    ap.add_argument("--cifar-steps", type=int, default=50)
     ap.add_argument("--train-steps", type=int, default=30)
     ap.add_argument("--phase6-only", action="store_true",
                     help="run phase 6 alone (main() starts it so, in a fresh process)")
@@ -3474,6 +3987,9 @@ def main(argv=None) -> int:
                     help="run phase 8 alone (main() starts it so, in a fresh process)")
     ap.add_argument("--phase9-only", action="store_true",
                     help="run phase 9 alone (main() starts it so, in a fresh process)")
+    ap.add_argument("--phase10-only", action="store_true",
+                    help="run phase 10 alone, one process per visible card (main() starts "
+                    "it so, in a fresh process)")
     args = ap.parse_args(argv)
 
     import torch
@@ -3505,6 +4021,9 @@ def main(argv=None) -> int:
         return 0
     if args.phase9_only:
         phase9(dev, args)
+        return 0
+    if args.phase10_only:
+        phase10(args)
         return 0
     card = card_line()
     log(f"torch {torch.__version__} cuda {torch.version.cuda}; {torch.cuda.get_device_name(0)}")
@@ -3580,7 +4099,7 @@ def main(argv=None) -> int:
     sampler, ctxs = sd_captured_and_eager(sd, mod, cfg, 8, args.seed, dev,
                                           f"sampler ({args.steps} steps)")
     torch.cuda.empty_cache()
-    generate_in_turns(sd, mod, args.seed, 50)
+    generate_in_turns(sd, mod, args.seed, 10)
     torch.cuda.empty_cache()
 
     log_phase("phase 3b: SD-1.x, or, 768 px, latent batch 8, 2 steps")
@@ -3673,6 +4192,15 @@ def main(argv=None) -> int:
     log(f"  phase 9: {time.perf_counter() - t0:.1f} s, exit code {proc.returncode}")
     if proc.returncode != 0:
         raise AssertionError(f"phase 9 failed (exit code {proc.returncode})")
+
+    log_phase("phase 10: the parallel tier (DP training, the ensemble-sharded CIFAR sampler, "
+              "SD over data, TP, ring attention, the pipeline; one process per card)")
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, str(Path(__file__).resolve()), "--phase10-only",
+                           "--seed", str(args.seed)], timeout=300)
+    log(f"  phase 10: {time.perf_counter() - t0:.1f} s, exit code {proc.returncode}")
+    if proc.returncode != 0:
+        raise AssertionError(f"phase 10 failed (exit code {proc.returncode})")
 
     # the FFN kernel's tanh and unfused configurations: their own counts
     # over the main path's run (phase 3); no served path runs them

@@ -19,7 +19,10 @@ with struct2seq enabled takes its MPNN + ESM conditioner from
 randomly initialised ``IPAConfig.proteus_like()`` / ``framediff_like()``
 network stands in. Each run writes a config snapshot beside its outputs.
 Every command runs on the card unless ``--device cpu`` is given (JAX's
-``--platform``); JAX's multi-process flags are not ported.
+``--platform``). ``--coordinator_address host:port --num_processes N
+--process_id i`` (before the command) join a ``torch.distributed`` process
+group first, as JAX's do: ``cifar --mode train`` is then data-parallel over
+the N processes (NCCL between cards, gloo with ``--device cpu``).
 """
 
 from __future__ import annotations
@@ -318,6 +321,12 @@ def build_parser() -> argparse.ArgumentParser:
     from .pipelines.sd import METHODS
 
     p = argparse.ArgumentParser(prog="superdiff_tpu_torch")
+    # multi-process runs (parallel/distributed.py): the TCP rendezvous of
+    # torch.distributed, NCCL with --device cuda, gloo with --device cpu
+    p.add_argument("--coordinator_address", default=None,
+                   help="host:port of rank 0's rendezvous (multi-process runs)")
+    p.add_argument("--num_processes", type=int, default=None)
+    p.add_argument("--process_id", type=int, default=None)
     sub = p.add_subparsers(dest="cmd", required=True)
 
     c = sub.add_parser("cifar", help="CIFAR train/eval (cifar/main.py modes)")
@@ -393,6 +402,15 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
+    if args.coordinator_address or args.num_processes:
+        from .parallel.distributed import initialize
+
+        initialize(
+            coordinator_address=args.coordinator_address,
+            num_processes=args.num_processes,
+            process_id=args.process_id,
+            device=args.device,
+        )
     args.fn(args)
 
 

@@ -61,6 +61,13 @@ def make_dsm_loss(
     and optionally ``"label"`` (B,); ``eps`` the unit normals (B, *event),
     drawn from ``generator`` on the image's device when not given (the tests
     hand in JAX's threefry draw, which torch cannot reproduce).
+
+    ``num_shards`` / ``shard_index``: ``batch`` is one of ``num_shards``
+    equal slices of a global batch. The times are that slice of the global
+    Kronecker sequence (as in JAX) and a drawn ``eps`` is the global
+    batch's draw, sliced: data-parallel ranks share one generator state,
+    and each then draws what one process draws for its rows (JAX draws the
+    local shape from a replicated key, so its shards share their draws).
     """
 
     def loss_fn(sampler_state, batch, *, generator: Optional[torch.Generator] = None,
@@ -72,8 +79,10 @@ def make_dsm_loss(
                                         num_shards=num_shards, shard_index=shard_index)
         t = t.reshape((bs,) + (1,) * (data.ndim - 1))
         if eps is None:
-            eps = torch.randn(data.shape, generator=generator, dtype=data.dtype,
-                              device=data.device)
+            # the global batch's draw, this shard's rows of it
+            full = (bs * num_shards,) + tuple(data.shape[1:])
+            eps = torch.randn(full, generator=generator, dtype=data.dtype,
+                              device=data.device)[shard_index * bs:(shard_index + 1) * bs]
         x_t = schedule.marginal(data, eps, t)
         pred = apply_fn(t, x_t, labels, generator)
         per_sample = torch.sum((eps + pred) ** 2, dim=tuple(range(1, data.ndim)))

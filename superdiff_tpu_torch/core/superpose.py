@@ -87,6 +87,18 @@ def ode_step(probe, x, logq, t, dt, score_fn: ScoreFn, schedule, cfg: SuperposeC
     return x + dx, ito.renormalize_logq(logq + dlogq)
 
 
+def sde_step(eps, x, logq, t, dt, score_fn: ScoreFn, schedule, cfg: SuperposeConfig):
+    """One Euler-Maruyama step of the joint reverse SDE under OR
+    (``cifar/dynamics.py:115-136``), as one step of the captured loop runs
+    it: ``fused_sde_step`` on the stacked scores (the kernel on the card,
+    its plain version on the CPU) mixes them with the OR weights, steps,
+    and updates every model's log-density with the Itô estimator. ``eps``
+    the step's unit normals; returns (x + dx, renormalised logq)."""
+    da, beta, sigma = schedule.dlog_alpha_dt(t), schedule.beta(t), schedule.sigma(t)
+    return fused_sde_step(score_fn(t, x), x, eps, logq, da, beta, sigma, dt,
+                          temperature=cfg.or_temperature)
+
+
 def avg_sde_step(eps, x, logq, t, dt, score_fn: ScoreFn, schedule, cfg: SuperposeConfig):
     """Averaged-field baseline, stochastic (``cifar/dynamics.py:155-171``)."""
     sscores = score_fn(t, x)

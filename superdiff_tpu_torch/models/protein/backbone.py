@@ -84,7 +84,15 @@ def to_pdb(
     chain: str = "A",
 ) -> str:
     """Minimal PDB writer for backbone atoms; ``atom37`` (n, 37, 3) as a
-    numpy array or a tensor on any device."""
+    numpy array or a tensor on any device.
+
+    The ATOM records keep the PDB format's columns: the atom name from
+    column 14 (13-16), altLoc blank in 17, the residue name in 18-20, the
+    chain in 22, the residue number in 23-26, x / y / z in 31-38 / 39-46 /
+    47-54 (``%8.3f``: -999.999 to 9999.999 A), occupancy 55-60, B-factor
+    61-66, the element in 77-78. (JAX's writer has no altLoc column and
+    writes every field from the residue name on one column early, so a
+    coordinate of 100 A or more runs into its neighbour.)"""
     if isinstance(atom37, torch.Tensor):
         atom37 = atom37.detach().cpu().numpy()
     atom37 = np.asarray(atom37)
@@ -102,7 +110,7 @@ def to_pdb(
                 continue
             x, y, z = atom37[i, slot]
             lines.append(
-                f"ATOM  {serial:>5} {name:<4}{res3} {chain}{i + 1:>4}    "
+                f"ATOM  {serial:>5}  {name:<3} {res3} {chain}{i + 1:>4}    "
                 f"{x:8.3f}{y:8.3f}{z:8.3f}{1.0:6.2f}{b[i]:6.2f}          {elem:>2}"
             )
             serial += 1

@@ -140,8 +140,10 @@ class CrossAttention(nn.Module):
 
     def forward(self, x: torch.Tensor, context: Optional[torch.Tensor] = None):
         x = x.to(self.to_q.weight.dtype)
-        b, l, c = x.shape
+        b, l, _ = x.shape
         nh = self.heads
+        # this rank's heads under tensor parallelism (parallel/tp.py)
+        c = self.to_q.weight.shape[0]
         hd = c // nh
         impl = self.attn_impl
         if context is None and impl != "einsum":

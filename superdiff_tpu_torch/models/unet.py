@@ -136,17 +136,26 @@ class Dropout(nn.Module):
     scaled by ``1 / (1 - rate)`` in the input's dtype; the identity at rate
     0 and in ``eval()``. The masks come from ``generator`` (the caller's
     explicit stream, as JAX's ``rngs={"dropout": key}``), or from the
-    default generator of the input's device when it is None."""
+    default generator of the input's device when it is None.
+
+    ``shards = (num_shards, shard_index)``: ``x`` is one of ``num_shards``
+    equal slices of a data-parallel batch; the mask is drawn for the whole
+    batch and this slice's rows are kept, so the ranks, which share one
+    generator state, draw what one process would (``ScoreUNet.shard_dropout``)."""
 
     def __init__(self, rate: float):
         super().__init__()
         self.rate = rate
+        self.shards = (1, 0)
 
     def forward(self, x: torch.Tensor, generator: Optional[torch.Generator] = None):
         if not self.training or self.rate == 0.0:
             return x
         keep = 1.0 - self.rate
-        mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+        n, i = self.shards
+        b = x.shape[0]
+        u = torch.rand((n * b,) + tuple(x.shape[1:]), generator=generator, device=x.device)
+        mask = u[i * b:(i + 1) * b] < keep
         return torch.where(mask, x / keep, 0.0)
 
 
@@ -304,6 +313,15 @@ class ScoreUNet(nn.Module):
         self._counts[kind] = i + 1
         self.add_module(f"{kind}_{i}", module)
         return f"{kind}_{i}"
+
+    def shard_dropout(self, num_shards: int, shard_index: int) -> "ScoreUNet":
+        """Draw every dropout mask for a batch ``num_shards`` times this
+        module's and keep the ``shard_index``-th slice (data-parallel
+        training, ``pipelines.cifar.train``); (1, 0) is one process."""
+        for m in self.modules():
+            if isinstance(m, Dropout):
+                m.shards = (num_shards, shard_index)
+        return self
 
     def forward(self, t, x: torch.Tensor, y: Optional[torch.Tensor] = None,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:

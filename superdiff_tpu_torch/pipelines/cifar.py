@@ -4,8 +4,7 @@
 
 * ``train``: DSM training of one ``ScoreUNet`` with Adam, warmup, EMA and
   checkpoints every ``save_every`` steps, resuming from the latest one;
-  eagerly on one card (the JAX package's mesh data parallelism waits for
-  ``parallel/``).
+  data-parallel over the ranks of a process group, as JAX's mesh step.
 * ``make_generator``: the joint SuperDiff sampler over N checkpoints, the
   VP-SDE (or probability-flow ODE) reverse trajectory of
   ``core.superpose``, OR or averaged; SDE + OR replays one captured step
@@ -32,6 +31,7 @@ from typing import Mapping, Optional, Sequence, Union
 import numpy as np
 import torch
 
+from ..core import ito
 from ..core.dsm import make_dsm_loss
 from ..core.schedules import VPSchedule
 from ..core.superpose import SuperposeConfig, SuperposeSampler
@@ -40,6 +40,8 @@ from ..eval import fid as fid_lib
 from ..models.ensemble import make_stacked_score_fn
 from ..models.from_jax import init_like_flax_
 from ..models.unet import ScoreUNet
+from ..parallel.distributed import is_coordinator
+from ..parallel.mesh import data_sharding, make_mesh
 from ..train import checkpoints as ckpt_lib
 from ..train import init_train_state, make_optimizer, make_train_step
 from ..utils.images import stack_imgs
@@ -200,6 +202,8 @@ def make_generator(
     operator: str = "or",
     n_steps: Optional[int] = None,
     labels=None,
+    score_mode: str = "unroll",
+    mesh=None,
     capture: Optional[bool] = None,
 ):
     """Batch sampler over the superposition of ``models``.
@@ -210,31 +214,73 @@ def make_generator(
     and the per-step draws (steps, B, H, W, C), unit normals for the SDE or
     Rademacher probes for the ODE; otherwise both are drawn from
     ``generator``. ``labels`` (B,) integers, for class-conditioned models.
+    ``score_mode``: ``"unroll"`` (N forwards) or ``"vmap"`` (one shared
+    body over the stacked parameters), ``models.ensemble``'s ``mode``.
     On CUDA tensors the SDE + OR step runs the ``fused_sde_step`` kernel,
     replayed from a CUDA graph unless ``capture=False`` (``superpose``'s
     ``capture``); the closure keeps its ``SuperposeSampler``, so a later
     call copies its inputs into the captured loop and replays every step.
+
+    ``mesh`` (a ``parallel.mesh.Mesh``): the batch is split over the data
+    axes and the models over ``model`` (``make_stacked_score_fn``). Each
+    rank samples its rows, and the rows are all-gathered at the end, so
+    every rank returns the whole batch. Without ``noise`` every rank draws
+    the whole batch's noise, in the order one process draws it, and takes
+    its rows: a mesh run draws what a one-rank run does. A ``model`` axis
+    above 1 puts an all-gather in every step, and the step then runs
+    eagerly (``capture=True`` raises); on a data axis alone the step holds
+    no collective and is captured as on one rank.
     """
     models = list(models)
     dev = next(models[0].parameters()).device
     if labels is not None:
         labels = torch.as_tensor(labels, dtype=torch.long, device=dev)
-    score_fn = make_stacked_score_fn(models, labels=labels)
+    shape = (cfg.eval_batch_size, cfg.image_size, cfg.image_size, cfg.num_channels)
     sp_cfg = SuperposeConfig(n_steps=n_steps or cfg.n_sample_steps, t_1=cfg.t_1,
                              mode=mode, operator=operator)
-    shape = (cfg.eval_batch_size, cfg.image_size, cfg.image_size, cfg.num_channels)
+    split = False  # the batch over the data axes
+    if mesh is not None:
+        from ..parallel.mesh import dp_axes, shard_batch
+
+        if mesh.shape.get("model", 1) > 1:
+            if capture:
+                raise ValueError("capture=True: a model axis puts an all-gather in the step")
+            capture = False
+        split = mesh.size(dp_axes(mesh)) > 1
+        if split and labels is not None:
+            labels = shard_batch(labels, mesh)
+    score_fn = make_stacked_score_fn(models, labels=labels, mode=score_mode, mesh=mesh)
     sampler = SuperposeSampler(score_fn, VPSchedule(), sp_cfg, len(models))
 
     def generate(generator: Optional[torch.Generator] = None, noise=None):
+        if noise is None and split:
+            noise = _draw_noise(generator, shape, sp_cfg, dev)
         if noise is None:
             x1, zs = torch.randn(shape, generator=generator, device=dev), None
         else:
             x1 = torch.as_tensor(noise[0], dtype=torch.float32, device=dev)
             zs = noise[1]
+        if split:
+            x1 = shard_batch(x1, mesh)
+            zs = [shard_batch(torch.as_tensor(z, device=dev), mesh) for z in zs]
         x0, logq, _ = sampler(x1, noise=zs, generator=generator, capture=capture)
+        if split:
+            x0 = mesh.all_gather(x0, dp_axes(mesh), dim=0)
+            logq = mesh.all_gather(logq, dp_axes(mesh), dim=0)
         return x0, logq
 
     return generate
+
+
+def _draw_noise(generator, shape, sp_cfg: SuperposeConfig, dev):
+    """The whole batch's (x1, per-step draws), in the order and of the kind
+    ``generate`` and ``SuperposeSampler`` draw them on one rank."""
+    x1 = torch.randn(shape, generator=generator, device=dev)
+    if sp_cfg.mode == "ode":
+        zs = [ito.rademacher(shape, generator, torch.float32, dev) for _ in range(sp_cfg.n_steps)]
+    else:
+        zs = [torch.randn(shape, generator=generator, device=dev) for _ in range(sp_cfg.n_steps)]
+    return x1, zs
 
 
 def train(
@@ -258,13 +304,24 @@ def train(
     the current parameters, ``run_lib.py:110-125``) to
     ``artifacts_{step}.npz``; ``estimate_bpd`` also logs bits/dim of the
     current batch (50 RK4 steps, ``run_lib.py:121-126``). Returns the state.
+
+    Under a process group (``parallel.distributed.initialize``) the step is
+    data-parallel over ``make_mesh(model=1)``, as in JAX: every rank reads
+    the same global batch and trains on its slice (``make_train_step``'s
+    ``mesh``), its times, noise and dropout masks the global batch's, and
+    only rank 0 writes metrics, checkpoints and artifacts.
     """
     os.makedirs(workdir, exist_ok=True)
     dev = torch.device(device)
     model, state, opt, mgr = init_state(cfg, workdir, device=dev)
     schedule = VPSchedule()
-    loss_fn = make_dsm_loss(_apply_fn(model), schedule, t_0=cfg.t_0, t_1=cfg.t_1)
-    step_fn = make_train_step(opt, loss_fn)
+    mesh = make_mesh(model=1)
+    shards = data_sharding(mesh)
+    model.shard_dropout(*shards)
+    loss_fn = make_dsm_loss(_apply_fn(model), schedule, t_0=cfg.t_0, t_1=cfg.t_1,
+                            num_shards=shards[0], shard_index=shards[1])
+    step_fn = make_train_step(opt, loss_fn, mesh=mesh)
+    coordinator = is_coordinator()
     ds = ImageDataset(cfg.dataset, cfg.train_split, seed=cfg.seed, image_size=cfg.image_size)
     it = PrefetchIterator(ds.batches(cfg.batch_size))
     logger = MetricLogger(os.path.join(workdir, "metrics.jsonl"))
@@ -275,15 +332,15 @@ def train(
             host_batch = next(it)
             batch = {k: torch.from_numpy(v).to(dev) for k, v in host_batch.items()}
             state, loss = step_fn(state, batch)
-            if step % cfg.log_every == 0:
+            if coordinator and step % cfg.log_every == 0:
                 logger.log(step=step, loss=float(loss),
                            steps_per_sec=cfg.log_every / max(time.time() - t_start, 1e-9))
                 t_start = time.time()
-            if step % cfg.save_every == 0:
+            if coordinator and step % cfg.save_every == 0:
                 # id = the step (interval-relative ids would collide across
                 # runs with different save_every)
                 ckpt_lib.save(mgr, step, state)
-            if eval_artifacts and step % cfg.eval_every == 0:
+            if coordinator and eval_artifacts and step % cfg.eval_every == 0:
                 _train_artifacts(cfg, workdir, state, batch, step, estimate_bpd, logger, dev)
     finally:
         it.close()

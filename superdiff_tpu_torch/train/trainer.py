@@ -2,8 +2,9 @@
 ``superdiff_tpu/train/trainer.py``).
 
 The JAX step is one jitted function, its data parallelism a mesh with a
-batch-sharded input; here it is an eager PyTorch step on one device
-(data parallelism waits for ``parallel/``). The optimizer is optax's
+batch-sharded input; here it is an eager PyTorch step, and with a
+``parallel.mesh.Mesh`` each rank runs it on its slice of the batch with
+the gradients all-reduced by hand (``make_train_step``). The optimizer is optax's
 ``chain(clip(grad_clip), adam(linear warmup))`` rebuilt from
 ``torch.optim.Adam`` and a ``LambdaLR`` schedule:
 
@@ -91,7 +92,8 @@ def init_train_state(
     )
 
 
-def make_train_step(optimizer: OptimizerSpec, loss_fn: Callable):
+def make_train_step(optimizer: OptimizerSpec, loss_fn: Callable, mesh=None,
+                    donate: bool = False):
     """Build the DSM train step.
 
     ``loss_fn(sampler_state, batch, *, generator, eps) -> (loss,
@@ -105,7 +107,28 @@ def make_train_step(optimizer: OptimizerSpec, loss_fn: Callable):
     ``eps`` (the loss's draws: for the image DSM loss unit normals of the
     batch's shape, for the SE(3) loss a dict) replaces the state
     generator's draw.
+
+    ``mesh`` (a ``parallel.mesh.Mesh``): data parallelism. The state is
+    replicated: every rank holds all of it. ``batch`` (and ``eps``) is the
+    global batch, the same on every rank; each rank takes its
+    ``shard_batch`` slice and the loss of its rows (build the loss with
+    ``num_shards`` / ``shard_index`` of ``parallel.mesh.data_sharding``,
+    so its times, noise and dropout masks are the global batch's). The
+    gradients are flattened into one buffer and all-reduced (mean) over the
+    data axes in one call before the elementwise clip, as JAX's jitted
+    step clips the global gradient (a clip per rank first is another
+    update); the returned loss is the global mean. Adam, the schedule and
+    the EMA then run the same arithmetic on every rank, so the state stays
+    equal bit for bit across ranks. A mesh without a process group (one
+    rank) has nothing to reduce.
+
+    ``donate``: JAX's buffer donation lets XLA update the state in place;
+    this step always updates the state in place, so the flag is accepted
+    and changes nothing.
     """
+    del donate  # the state is always updated in place
+    if mesh is not None:
+        from ..parallel.mesh import dp_axes, shard_batch
 
     def step_fn(state: TrainState, batch, *, eps: Optional[torch.Tensor] = None):
         model = state.model
@@ -113,9 +136,16 @@ def make_train_step(optimizer: OptimizerSpec, loss_fn: Callable):
         named = list(model.named_parameters())
         params = [p for _, p in named]
         state.optimizer.zero_grad(set_to_none=True)
+        if mesh is not None:
+            batch = shard_batch(batch, mesh)
+            eps = None if eps is None else shard_batch(eps, mesh)
         loss, next_sampler_state = loss_fn(state.sampler_state, batch,
                                            generator=state.generator, eps=eps)
         loss.backward()
+        if mesh is not None and mesh.distributed:
+            loss = _mean_over(mesh, dp_axes(mesh),
+                              [p.grad for p in params if p.grad is not None],
+                              loss.detach())
         torch.nn.utils.clip_grad_value_(params, optimizer.grad_clip)
         state.optimizer.step()
         state.schedule.step()
@@ -129,3 +159,16 @@ def make_train_step(optimizer: OptimizerSpec, loss_fn: Callable):
         return state, loss.detach()
 
     return step_fn
+
+
+@torch.no_grad()
+def _mean_over(mesh, axes, grads, loss):
+    """Mean of ``grads`` (in place) and of ``loss`` over the mesh's
+    ``axes``: one all-reduce of the flattened gradients with the loss as
+    their last element; returns the mean loss."""
+    flat = torch.cat([g.reshape(-1) for g in grads] + [loss.reshape(1).to(grads[0].dtype)])
+    mesh.all_reduce(flat, axes)
+    flat /= mesh.size(axes)
+    torch._foreach_copy_(grads, [v.view_as(g) for v, g in zip(
+        flat[:-1].split([g.numel() for g in grads]), grads)])
+    return flat[-1].to(loss.dtype)

@@ -99,3 +99,31 @@ def test_hutchinson_div_and_rademacher():
     jprobe = np.asarray(jito.rademacher(jax.random.PRNGKey(0), (64,)))
     assert set(np.unique(jprobe)) == {-1.0, 1.0}
 
+
+
+def test_sde_step_matches_jax():
+    """``sde_step`` (the one SDE / OR step; on the CPU ``fused_sde_step``'s
+    plain version) against JAX's ``sde_step`` with its plain epilogue
+    (``fused_kernel=False``), on JAX's own normals regenerated from the key;
+    logq, a renormalised difference of O(1e2) Itô sums here, within 1e-4
+    of its largest magnitude."""
+    from superdiff_tpu.core.superpose import SuperposeConfig as JConfig
+    from superdiff_tpu.core.superpose import sde_step as jax_sde_step
+    from superdiff_tpu_torch.core.superpose import SuperposeConfig, sde_step
+
+    sscores, x, _, _ = _vp_inputs(3)
+    logq = np.random.default_rng(4).standard_normal((4, 3)).astype(np.float32)
+    key = jax.random.PRNGKey(5)
+    eps = np.asarray(jax.random.normal(key, x.shape))
+    jcfg = JConfig(n_steps=10, fused_kernel=False)
+    cfg = SuperposeConfig(n_steps=10)
+    tt, dt = np.float32(0.62), np.float32(0.01)
+    ref_x, ref_q = jax_sde_step(key, jnp.asarray(x), jnp.asarray(logq), jnp.float32(tt),
+                                jnp.float32(dt), lambda _t, _x: jnp.asarray(sscores),
+                                jsched.VPSchedule(), jcfg)
+    got_x, got_q = sde_step(t(eps), t(x), t(logq), torch.tensor(tt), torch.tensor(dt),
+                            lambda _t, _x: t(sscores), schedules.VPSchedule(), cfg)
+    np.testing.assert_allclose(got_x.numpy(), np.asarray(ref_x), rtol=1e-5, atol=1e-5)
+    scale = np.abs(np.asarray(ref_q)).max()
+    np.testing.assert_allclose(got_q.numpy() / scale, np.asarray(ref_q) / scale, rtol=0,
+                               atol=1e-4)

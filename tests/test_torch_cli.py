@@ -2,8 +2,8 @@
 against JAX's parsers, and a tiny run of each on the CPU.
 
 Each subcommand takes JAX's arguments at JAX's defaults, plus ``--device``
-(the card by default; JAX's top-level ``--platform``), and none of JAX's
-multi-process flags. ``sd --preset tiny`` runs two steps and writes the
+(the card by default; JAX's top-level ``--platform``); the top level takes
+JAX's multi-process flags. ``sd --preset tiny`` runs two steps and writes the
 latents, the images, the config snapshot and the metrics file (the CLIP and
 ImageReward scores are absent without local weights). ``cifar`` trains a
 tiny config for a few steps (``CONFIGS`` swapped for it, as the full-width
@@ -37,8 +37,17 @@ def test_parser_takes_jax_arguments(cmd):
 
 
 def test_no_multi_process_flags():
-    top = {a.dest for a in cli.build_parser()._actions}
-    assert not top & {"coordinator_address", "num_processes", "process_id", "platform"}
+    """Since the parallel tier was ported the top level takes JAX's three
+    multi-process flags at JAX's defaults, and still no ``--platform``
+    (``--device`` on each command stands for it)."""
+    def top(parser):
+        return {a.dest: a.default for a in parser._actions
+                if a.dest not in ("help", "cmd")}
+
+    flags = {"coordinator_address", "num_processes", "process_id"}
+    assert set(top(cli.build_parser())) == flags
+    assert top(cli.build_parser()) == {k: v for k, v in top(jax_parser()).items() if k in flags}
+    assert "platform" in top(jax_parser())
 
 
 def test_sd_tiny_on_the_cpu(tmp_path, capsys, monkeypatch):

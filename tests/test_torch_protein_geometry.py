@@ -310,20 +310,45 @@ def test_to_atom37_matches_jax(with_psi):
 
 
 def test_to_pdb_text_matches_jax():
+    """The port's PDB text read back by JAX's unchanged parser
+    (``data/pdb.py::parse_pdb_string``) and by the port's gives the written
+    residues (names, numbers, mask), chain, atoms (to the ``%8.3f``
+    rounding) and B-factors, with coordinates out to +-999 A. The text no
+    longer equals JAX's writer's: that one has no altLoc column and writes
+    every field from the residue name on one column early (ROADMAP C5)."""
+    from superdiff_tpu.data import pdb as jpdb
+    from superdiff_tpu_torch.data import pdb
+
     rng = np.random.default_rng(9)
-    r7 = np.concatenate([_quats(rng, 9), 10 * rng.standard_normal((9, 3))], -1)
-    r7 = r7.astype(np.float32)
-    atoms = backbone.to_atom37(t(r7)).numpy()
+    r7 = np.concatenate([_quats(rng, 9), rng.uniform(-995, 995, (9, 3))], -1)
+    atoms = backbone.to_atom37(t(r7.astype(np.float32))).numpy()
+    atoms[0, :5] = [[-999.5, 999.5, 0.0]] * 5  # the widest coordinates %8.3f holds
     aatype = np.arange(9) % 20
-    aatype[3] = 7  # GLY: no CB record
+    aatype[3] = 7  # GLY (as residue 7): no CB record
     mask = np.ones(9)
     mask[5] = 0
-    bf = rng.random(9)
-    ref = jbackbone.to_pdb(atoms, aatype=aatype, res_mask=mask, b_factors=bf, chain="B")
-    assert backbone.to_pdb(atoms, aatype=aatype, res_mask=mask, b_factors=bf,
-                           chain="B") == ref
-    assert backbone.to_pdb(torch.from_numpy(atoms.copy())) == jbackbone.to_pdb(atoms)
-    assert backbone.to_pdb(backbone.to_atom37(t(r7))).count("ATOM") == 9 * 5
+    bf = rng.uniform(0, 99, 9)
+    text = backbone.to_pdb(atoms, aatype=aatype, res_mask=mask, b_factors=bf, chain="B")
+    keep = mask > 0
+    lines = [line for line in text.splitlines() if line.startswith("ATOM")]
+    assert len(lines) == 8 * 5 - int((aatype[keep] == 7).sum())
+    assert all(line[21] == "B" and line[16] == " " for line in lines)
+    slots = [slot for _, slot, _ in backbone._BB_ATOMS]
+    parsed = [jpdb.parse_pdb_string(text), pdb.parse_pdb_string(text)]
+    for got in parsed:
+        np.testing.assert_array_equal(got.aatype, aatype[keep])
+        np.testing.assert_array_equal(got.residue_index, np.arange(1, 10)[keep])
+        np.testing.assert_array_equal(got.chain_index, np.zeros(8))
+        has_cb = aatype[keep] != 7
+        np.testing.assert_array_equal(got.atom37_mask[:, slots].sum(-1), 4 + has_cb)
+        written = got.atom37_mask[:, slots, None]
+        np.testing.assert_allclose(got.atom37[:, slots], written * atoms[keep][:, slots],
+                                   rtol=0, atol=5e-4)
+        np.testing.assert_allclose(got.b_factors[:, slots[1]], bf[keep], rtol=0, atol=5e-3)
+    for a, b in zip(*(vars(p).values() for p in parsed)):
+        np.testing.assert_array_equal(a, b)
+    assert backbone.to_pdb(torch.from_numpy(atoms.copy())) == backbone.to_pdb(atoms)
+    assert backbone.to_pdb(backbone.to_atom37(t(r7.astype(np.float32)))).count("ATOM") == 9 * 5
 
 
 # Itô and kappa forms ----------------------------------------------------------
