@@ -1,0 +1,21 @@
+"""The GEGLU FFN sub-blocks' share of their roofline, in percent: the
+least time their work needs on the card (6 M C F FLOPs against the bf16
+peak, or the input, output and both weights once against HBM, whichever
+is longer; from the cell's shapes) over the device time of the kernels
+whose name says GEGLU or FFN, inside the ``sample`` spans. Silent where no
+such kernel ran."""
+
+from benchmark.harness.yardstick import least_seconds_of
+
+PATTERN = r"geglu|ffn"
+
+
+def read(run):
+    r = run.reading
+    work = run.driver.step_work()["ffn"]
+    if r is None or not work or not run.steps:
+        return None
+    sec = r.matching_seconds(PATTERN, "sample")
+    if sec <= 0:
+        return None
+    return 100.0 * run.steps * least_seconds_of(work, run.kind) / sec
