@@ -18,6 +18,8 @@ from typing import Callable, Optional
 
 import torch
 
+from ..utils import profiling
+
 
 def want_capture(capture: Optional[bool], device: torch.device, what: str) -> bool:
     """Resolve a sampler's ``capture`` argument: ``None`` means captured on
@@ -36,15 +38,18 @@ def capture_step(step: Callable[[], None]) -> torch.cuda.CUDAGraph:
     that stream (recorded, not run) and return it. ``torch.cuda.graph``
     empties the allocator's cache before it records, dropped graphs' pools
     included: a capture cannot make the allocator free cached memory when
-    it runs short. A failed capture raises; nothing falls back to eager."""
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        step()
-    torch.cuda.current_stream().wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph, stream=side):
-        step()
+    it runs short. A failed capture raises; nothing falls back to eager.
+    Both are the ``capture`` span, counted under ``graphs_captured``."""
+    with profiling.span("capture"):
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            step()
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, stream=side):
+            step()
+        profiling.count("graphs_captured")
     return graph
 
 
@@ -58,13 +63,16 @@ class StepLoop:
     def advance(self, steps: int, capture: bool) -> None:
         """Every step from the start: eagerly, or as replays of one captured
         step; the first captured run takes step 0 eagerly and captures the
-        step after it."""
+        step after it. The loop after the capture is the ``steps`` span,
+        each replay or eager step a ``step`` span, counted under
+        ``steps_replayed`` or ``steps_eager``."""
         self.reset()
         done = 0
         if capture and self.graph is None and steps:
             self.graph = capture_step(self.step)
             done = 1
-        for _ in range(done, steps):
+        counter = "steps_replayed" if capture else "steps_eager"
+        for _ in profiling.steps(range(done, steps), counter):
             if capture:
                 self.graph.replay()
             else:

@@ -37,6 +37,7 @@ from typing import Callable, Optional, Sequence, Tuple
 import torch
 
 from ..ops.fused_step import fused_sde_step
+from ..utils import profiling
 from . import ito
 from .capture import StepLoop, want_capture
 from .kappa import or_weights
@@ -142,6 +143,7 @@ class _SdeOrLoop(StepLoop):
         self.x = x_init.clone()
         self.logq = torch.zeros((x_init.shape[0], n_models), dtype=torch.float32, device=dev)
         self.idx = torch.zeros((1,), dtype=torch.long, device=dev)
+        profiling.count("loops_built")
 
     def fits(self, x_init) -> bool:
         """Whether a run from ``x_init`` can replay this loop: the same
@@ -150,8 +152,9 @@ class _SdeOrLoop(StepLoop):
                 and x_init.device == self.x_init.device)
 
     def load(self, x_init, zs):
-        self.x_init.copy_(x_init)
-        self.zs.copy_(zs)
+        with profiling.span("load"):
+            self.x_init.copy_(x_init)
+            self.zs.copy_(zs)
 
     def reset(self):
         self.x.copy_(self.x_init)
@@ -189,47 +192,51 @@ class SuperposeSampler:
                  generator: Optional[torch.Generator] = None,
                  capture: Optional[bool] = None) -> Tuple[torch.Tensor, torch.Tensor, int]:
         """One trajectory from ``x_init``; the arguments and the result as
-        in :func:`superpose`."""
-        cfg, dev = self.cfg, x_init.device
-        nfe = cfg.n_steps * (2 if cfg.mode == "ode" else 1)
-        if (cfg.mode, cfg.operator) == ("sde", "or"):
-            x, logq = self._sde_or(x_init, noise, generator,
-                                   want_capture(capture, dev, "superpose"))
+        in :func:`superpose`. The call is a ``sample`` span; its noise stack
+        and the kept loop's inputs are ``load`` spans."""
+        with profiling.span("sample"):
+            cfg, dev = self.cfg, x_init.device
+            nfe = cfg.n_steps * (2 if cfg.mode == "ode" else 1)
+            if (cfg.mode, cfg.operator) == ("sde", "or"):
+                x, logq = self._sde_or(x_init, noise, generator,
+                                       want_capture(capture, dev, "superpose"))
+                return x, logq, nfe
+            steps = {("sde", "avg"): avg_sde_step, ("ode", "or"): ode_step,
+                     ("ode", "avg"): ode_step}
+            if (cfg.mode, cfg.operator) not in steps:
+                raise ValueError(f"unknown mode / operator: {cfg.mode} / {cfg.operator}")
+            if capture:
+                raise ValueError(f"capture=True: only sde / or runs as a captured step, not "
+                                 f"{cfg.mode} / {cfg.operator}")
+            x = x_init
+            logq = torch.zeros((x.shape[0], self.n_models), dtype=torch.float32, device=dev)
+            # float32 host scalars, in the JAX scan's order of operations
+            dt = torch.tensor(cfg.dt, dtype=torch.float32)
+            for i in profiling.steps(range(cfg.n_steps), "steps_eager"):
+                t = cfg.t_1 - torch.tensor(i, dtype=torch.float32) * dt
+                if noise is not None:
+                    z = torch.as_tensor(noise[i], dtype=x.dtype, device=dev)
+                elif cfg.mode == "ode":
+                    z = ito.rademacher(x.shape, generator, x.dtype, dev)
+                else:
+                    z = torch.randn(x.shape, generator=generator, dtype=x.dtype, device=dev)
+                x, logq = steps[cfg.mode, cfg.operator](z, x, logq, t, dt, self.score_fn,
+                                                        self.schedule, cfg)
             return x, logq, nfe
-        steps = {("sde", "avg"): avg_sde_step, ("ode", "or"): ode_step, ("ode", "avg"): ode_step}
-        if (cfg.mode, cfg.operator) not in steps:
-            raise ValueError(f"unknown mode / operator: {cfg.mode} / {cfg.operator}")
-        if capture:
-            raise ValueError(f"capture=True: only sde / or runs as a captured step, not "
-                             f"{cfg.mode} / {cfg.operator}")
-        x = x_init
-        logq = torch.zeros((x.shape[0], self.n_models), dtype=torch.float32, device=dev)
-        # float32 host scalars, in the JAX scan's order of operations
-        dt = torch.tensor(cfg.dt, dtype=torch.float32)
-        for i in range(cfg.n_steps):
-            t = cfg.t_1 - torch.tensor(i, dtype=torch.float32) * dt
-            if noise is not None:
-                z = torch.as_tensor(noise[i], dtype=x.dtype, device=dev)
-            elif cfg.mode == "ode":
-                z = ito.rademacher(x.shape, generator, x.dtype, dev)
-            else:
-                z = torch.randn(x.shape, generator=generator, dtype=x.dtype, device=dev)
-            x, logq = steps[cfg.mode, cfg.operator](z, x, logq, t, dt, self.score_fn,
-                                                    self.schedule, cfg)
-        return x, logq, nfe
 
     def _sde_or(self, x_init, noise, generator, capture: bool):
         cfg, dev = self.cfg, x_init.device
-        if noise is not None:
-            zs = torch.stack([torch.as_tensor(noise[i], dtype=x_init.dtype, device=dev)
-                              for i in range(cfg.n_steps)])
-        else:
-            # one draw a step, in order, as the step-by-step loop draws them
-            zs = torch.empty((cfg.n_steps,) + tuple(x_init.shape), dtype=x_init.dtype,
-                             device=dev)
-            for i in range(cfg.n_steps):
-                zs[i] = torch.randn(x_init.shape, generator=generator, dtype=x_init.dtype,
-                                    device=dev)
+        with profiling.span("load"):
+            if noise is not None:
+                zs = torch.stack([torch.as_tensor(noise[i], dtype=x_init.dtype, device=dev)
+                                  for i in range(cfg.n_steps)])
+            else:
+                # one draw a step, in order, as the step-by-step loop draws them
+                zs = torch.empty((cfg.n_steps,) + tuple(x_init.shape), dtype=x_init.dtype,
+                                 device=dev)
+                for i in range(cfg.n_steps):
+                    zs[i] = torch.randn(x_init.shape, generator=generator,
+                                        dtype=x_init.dtype, device=dev)
         if capture and self.loop is not None and self.loop.fits(x_init):
             self.loop.load(x_init, zs)
             return self.loop.run(capture)

@@ -44,6 +44,7 @@ from ..parallel.distributed import is_coordinator
 from ..parallel.mesh import data_sharding, make_mesh
 from ..train import checkpoints as ckpt_lib
 from ..train import init_train_state, make_optimizer, make_train_step
+from ..utils import profiling
 from ..utils.images import stack_imgs
 from ..utils.logging import MetricLogger
 
@@ -220,6 +221,7 @@ def make_generator(
     replayed from a CUDA graph unless ``capture=False`` (``superpose``'s
     ``capture``); the closure keeps its ``SuperposeSampler``, so a later
     call copies its inputs into the captured loop and replays every step.
+    Each call is a ``request`` span.
 
     ``mesh`` (a ``parallel.mesh.Mesh``): the batch is split over the data
     axes and the models over ``model`` (``make_stacked_score_fn``). Each
@@ -253,20 +255,21 @@ def make_generator(
     sampler = SuperposeSampler(score_fn, VPSchedule(), sp_cfg, len(models))
 
     def generate(generator: Optional[torch.Generator] = None, noise=None):
-        if noise is None and split:
-            noise = _draw_noise(generator, shape, sp_cfg, dev)
-        if noise is None:
-            x1, zs = torch.randn(shape, generator=generator, device=dev), None
-        else:
-            x1 = torch.as_tensor(noise[0], dtype=torch.float32, device=dev)
-            zs = noise[1]
-        if split:
-            x1 = shard_batch(x1, mesh)
-            zs = [shard_batch(torch.as_tensor(z, device=dev), mesh) for z in zs]
-        x0, logq, _ = sampler(x1, noise=zs, generator=generator, capture=capture)
-        if split:
-            x0 = mesh.all_gather(x0, dp_axes(mesh), dim=0)
-            logq = mesh.all_gather(logq, dp_axes(mesh), dim=0)
+        with profiling.span("request"):
+            if noise is None and split:
+                noise = _draw_noise(generator, shape, sp_cfg, dev)
+            if noise is None:
+                x1, zs = torch.randn(shape, generator=generator, device=dev), None
+            else:
+                x1 = torch.as_tensor(noise[0], dtype=torch.float32, device=dev)
+                zs = noise[1]
+            if split:
+                x1 = shard_batch(x1, mesh)
+                zs = [shard_batch(torch.as_tensor(z, device=dev), mesh) for z in zs]
+            x0, logq, _ = sampler(x1, noise=zs, generator=generator, capture=capture)
+            if split:
+                x0 = mesh.all_gather(x0, dp_axes(mesh), dim=0)
+                logq = mesh.all_gather(logq, dp_axes(mesh), dim=0)
         return x0, logq
 
     return generate

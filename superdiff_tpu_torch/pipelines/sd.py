@@ -49,6 +49,7 @@ from ..models.sd import convert
 from ..models.sd.unet import SDUNet, SDUNetConfig
 from ..models.sd.vae import VAEConfig, VAEDecoder, decode_to_uint8
 from ..ops.sd_fused_step import sd_or_step
+from ..utils import profiling
 
 METHODS = (
     "and", "or", "avg", "and_ode", "avg_ode",
@@ -167,6 +168,7 @@ class _OrLoop(StepLoop):
         self.idx = torch.zeros((1,), dtype=torch.long, device=dev)
         self.kappa = torch.zeros((n, b), dtype=torch.float32, device=dev)
         self.lls = torch.zeros((n, b, 2), dtype=torch.float32, device=dev)
+        profiling.count("loops_built")
 
     def fits(self, mod: SDModules, cfg: SDPipelineConfig, x_init, big_c) -> bool:
         """Whether a run of ``mod``'s UNet under ``cfg`` on these inputs can
@@ -177,9 +179,10 @@ class _OrLoop(StepLoop):
 
     def load(self, x_init, zs, big_c):
         """This run's inputs into the static buffers."""
-        self.x_init.copy_(x_init)
-        self.zs.copy_(zs)
-        self.big_c.copy_(big_c)
+        with profiling.span("load"):
+            self.x_init.copy_(x_init)
+            self.zs.copy_(zs)
+            self.big_c.copy_(big_c)
 
     def reset(self):
         self.x.copy_(self.x_init)
@@ -240,109 +243,110 @@ def superdiff_sd_sample(
     captured loop stays on ``mod`` (``mod.or_loop``) until a captured run of
     other shapes or config replaces it; ``mod.or_loop = None`` frees it.
     """
-    _check_method(method)
-    dev = ctx_obj.device
-    if method != "or" and capture:
-        raise ValueError(f"capture=True: only 'or' runs as a captured step, not {method!r}")
-    capture = method == "or" and want_capture(capture, dev, "superdiff_sd_sample")
-    g = cfg.guidance_scale
-    n = cfg.num_inference_steps
-    grid = SigmaGrid.euler_discrete(n)
-    timesteps, sigmas = grid.as_arrays(device="cpu")
-    b = ctx_obj.shape[0]
-    shape = (b, cfg.height // 8, cfg.width // 8, 4)
-    given = [a.to(dev, torch.float32) if isinstance(a, torch.Tensor)
-             else torch.tensor(a, dtype=torch.float32, device=dev) for a in noise or ()]
-    x0 = given[0] if given else torch.randn(shape, generator=generator, device=dev)
-    zs = (given[1] if len(given) > 1
-          else torch.randn((n,) + shape, generator=generator, device=dev))
-    if method == "and_ode":
-        probes = (given[2] if len(given) > 2
-                  else ito.rademacher((n,) + shape, generator, device=dev))
-    x = x_unc = x0 * grid.init_noise_sigma
-    is_sd_baseline = method.startswith("sd_")
-    big_c = torch.cat([ctx_obj, ctx_unc, ctx_unc] if is_sd_baseline
-                      else [ctx_obj, ctx_bg, ctx_unc])
-    if method == "or":
-        if capture and mod.or_loop is not None and mod.or_loop.fits(mod, cfg, x, big_c):
-            mod.or_loop.load(x, zs, big_c)
-            return mod.or_loop.run(capture)
-        if capture:
-            mod.or_loop = None  # its graph's memory goes before the next is captured
-        loop = _OrLoop(mod, cfg, or_step_table(timesteps, sigmas).to(dev), x, zs, big_c)
-        if capture:
-            mod.or_loop = loop
-        return loop.run(capture)
-    # ll starts at 1.0 as in the reference: a constant that cancels in kappa
-    ll_obj = ll_bg = ll_unc = torch.ones(b, dtype=torch.float32, device=dev)
-    kappa = torch.full((b,), 0.5, dtype=torch.float32, device=dev)
-    traces = {"kappa": [], "ll_obj": [], "ll_bg": []}
-    for i in range(n):
-        sigma = sigmas[i]
-        dsigma = sigmas[i + 1] - sigmas[i]
-        t = timesteps[i].to(dev)
-        root = torch.sqrt(sigma**2 + 1.0).to(dev)
+    with profiling.span("sample"):
+        _check_method(method)
+        dev = ctx_obj.device
+        if method != "or" and capture:
+            raise ValueError(f"capture=True: only 'or' runs as a captured step, not {method!r}")
+        capture = method == "or" and want_capture(capture, dev, "superdiff_sd_sample")
+        g = cfg.guidance_scale
+        n = cfg.num_inference_steps
+        grid = SigmaGrid.euler_discrete(n)
+        timesteps, sigmas = grid.as_arrays(device="cpu")
+        b = ctx_obj.shape[0]
+        shape = (b, cfg.height // 8, cfg.width // 8, 4)
+        given = [a.to(dev, torch.float32) if isinstance(a, torch.Tensor)
+                 else torch.tensor(a, dtype=torch.float32, device=dev) for a in noise or ()]
+        x0 = given[0] if given else torch.randn(shape, generator=generator, device=dev)
+        zs = (given[1] if len(given) > 1
+              else torch.randn((n,) + shape, generator=generator, device=dev))
+        if method == "and_ode":
+            probes = (given[2] if len(given) > 2
+                      else ito.rademacher((n,) + shape, generator, device=dev))
+        x = x_unc = x0 * grid.init_noise_sigma
+        is_sd_baseline = method.startswith("sd_")
+        big_c = torch.cat([ctx_obj, ctx_unc, ctx_unc] if is_sd_baseline
+                          else [ctx_obj, ctx_bg, ctx_unc])
+        if method == "or":
+            if capture and mod.or_loop is not None and mod.or_loop.fits(mod, cfg, x, big_c):
+                mod.or_loop.load(x, zs, big_c)
+                return mod.or_loop.run(capture)
+            if capture:
+                mod.or_loop = None  # its graph's memory goes before the next is captured
+            loop = _OrLoop(mod, cfg, or_step_table(timesteps, sigmas).to(dev), x, zs, big_c)
+            if capture:
+                mod.or_loop = loop
+            return loop.run(capture)
+        # ll starts at 1.0 as in the reference: a constant that cancels in kappa
+        ll_obj = ll_bg = ll_unc = torch.ones(b, dtype=torch.float32, device=dev)
+        kappa = torch.full((b,), 0.5, dtype=torch.float32, device=dev)
+        traces = {"kappa": [], "ll_obj": [], "ll_bg": []}
+        for i in profiling.steps(range(n), "steps_eager"):
+            sigma = sigmas[i]
+            dsigma = sigmas[i + 1] - sigmas[i]
+            t = timesteps[i].to(dev)
+            root = torch.sqrt(sigma**2 + 1.0).to(dev)
 
-        def vels(big_x):
-            """One UNet forward over the conditioning batch."""
-            return mod.unet(big_x / root, t, big_c)
+            def vels(big_x):
+                """One UNet forward over the conditioning batch."""
+                return mod.unet(big_x / root, t, big_c)
 
-        if method not in ("and_ode", "avg_ode"):
-            noise_i = torch.sqrt(2.0 * abs(dsigma) * sigma) * zs[i]
-        if is_sd_baseline:
-            v_obj, v_unc, v_unc_only = vels(torch.cat([x, x, x_unc])).chunk(3)
-            dx = 2.0 * dsigma * (v_unc + g * (v_obj - v_unc)) + noise_i
-            new_x = x + dx
-            # the unconditional trajectory sees the same noise
-            x_unc = x_unc + 2.0 * dsigma * v_unc_only + noise_i
-            ll_obj = ll_bg = (ll_obj - abs(dsigma) / sigma * _sum_ev(v_obj**2)
-                              - _sum_ev(dx * v_obj) / sigma)
-            ll_unc = (ll_unc - abs(dsigma) / sigma * _sum_ev(v_unc_only**2)
-                      - _sum_ev(dx * v_unc_only) / sigma)
-        elif method == "and_ode":
-            probe = probes[i]
-            if cfg.cond_dedup:
-                # the uncond group's tangent is discarded, so the shared
-                # probe through the dedup forward gives the same used values
-                vals, tans = torch.func.jvp(vels, (x,), (probe,))
-            else:
-                vals, tans = torch.func.jvp(
-                    vels, (x.repeat(3, 1, 1, 1),),
-                    (torch.cat([probe, probe, torch.zeros_like(probe)]),))
-            v_obj, v_bg, v_unc = vals.chunk(3)
-            t_obj, t_bg, _ = tans.chunk(3)
-            div_obj = -_sum_ev(probe * t_obj)  # the reference's sign
-            div_bg = -_sum_ev(probe * t_bg)
-            kappa = kp.kappa_and_ode(v_obj, v_bg, div_obj, div_bg, v_unc, sigma, dsigma,
-                                     g, n, cfg.lift)
-            vf = v_unc + g * ((v_bg - v_unc) + kappa[:, None, None, None] * (v_obj - v_bg))
-            new_x = x + dsigma * vf
-            dlls = ito.dlogq_ode_sigma_space(torch.stack([v_obj, v_bg]),
-                                             torch.stack([div_obj, div_bg]), vf, sigma, dsigma)
-            ll_obj, ll_bg = ll_obj + dlls[:, 0], ll_bg + dlls[:, 1]
-        else:  # and / avg / avg_ode
-            v_obj, v_bg, v_unc = vels(x if cfg.cond_dedup else x.repeat(3, 1, 1, 1)).chunk(3)
-            if method == "and":
-                dx_ind = 2.0 * dsigma * (v_unc + g * (v_bg - v_unc)) + noise_i
-                kappa = kp.kappa_and_sde(v_obj, v_bg, dx_ind, sigma, dsigma, g, n, cfg.lift)
-            else:
-                kappa = torch.full((b,), cfg.kappa_fixed, dtype=torch.float32, device=dev)
-            vf = v_unc + g * ((v_bg - v_unc) + kappa[:, None, None, None] * (v_obj - v_bg))
-            if method == "avg_ode":
-                # noise-free step; no log-likelihood is tracked for it
-                new_x = x + dsigma * vf
-            else:
-                dx = 2.0 * dsigma * vf + noise_i
+            if method not in ("and_ode", "avg_ode"):
+                noise_i = torch.sqrt(2.0 * abs(dsigma) * sigma) * zs[i]
+            if is_sd_baseline:
+                v_obj, v_unc, v_unc_only = vels(torch.cat([x, x, x_unc])).chunk(3)
+                dx = 2.0 * dsigma * (v_unc + g * (v_obj - v_unc)) + noise_i
                 new_x = x + dx
-                dlls = ito.dlogq_sde_sigma_space(torch.stack([v_obj, v_bg]), dx, sigma, dsigma)
+                # the unconditional trajectory sees the same noise
+                x_unc = x_unc + 2.0 * dsigma * v_unc_only + noise_i
+                ll_obj = ll_bg = (ll_obj - abs(dsigma) / sigma * _sum_ev(v_obj**2)
+                                  - _sum_ev(dx * v_obj) / sigma)
+                ll_unc = (ll_unc - abs(dsigma) / sigma * _sum_ev(v_unc_only**2)
+                          - _sum_ev(dx * v_unc_only) / sigma)
+            elif method == "and_ode":
+                probe = probes[i]
+                if cfg.cond_dedup:
+                    # the uncond group's tangent is discarded, so the shared
+                    # probe through the dedup forward gives the same used values
+                    vals, tans = torch.func.jvp(vels, (x,), (probe,))
+                else:
+                    vals, tans = torch.func.jvp(
+                        vels, (x.repeat(3, 1, 1, 1),),
+                        (torch.cat([probe, probe, torch.zeros_like(probe)]),))
+                v_obj, v_bg, v_unc = vals.chunk(3)
+                t_obj, t_bg, _ = tans.chunk(3)
+                div_obj = -_sum_ev(probe * t_obj)  # the reference's sign
+                div_bg = -_sum_ev(probe * t_bg)
+                kappa = kp.kappa_and_ode(v_obj, v_bg, div_obj, div_bg, v_unc, sigma, dsigma,
+                                         g, n, cfg.lift)
+                vf = v_unc + g * ((v_bg - v_unc) + kappa[:, None, None, None] * (v_obj - v_bg))
+                new_x = x + dsigma * vf
+                dlls = ito.dlogq_ode_sigma_space(torch.stack([v_obj, v_bg]),
+                                                 torch.stack([div_obj, div_bg]), vf, sigma, dsigma)
                 ll_obj, ll_bg = ll_obj + dlls[:, 0], ll_bg + dlls[:, 1]
-        x = new_x
-        traces["kappa"].append(kappa)
-        traces["ll_obj"].append(ll_obj)
-        traces["ll_bg"].append(ll_bg)
-    traces = {k: torch.stack(v) for k, v in traces.items()}
-    traces.update(final_ll_obj=ll_obj, final_ll_bg=ll_bg, final_ll_uncond=ll_unc)
-    return x, traces
+            else:  # and / avg / avg_ode
+                v_obj, v_bg, v_unc = vels(x if cfg.cond_dedup else x.repeat(3, 1, 1, 1)).chunk(3)
+                if method == "and":
+                    dx_ind = 2.0 * dsigma * (v_unc + g * (v_bg - v_unc)) + noise_i
+                    kappa = kp.kappa_and_sde(v_obj, v_bg, dx_ind, sigma, dsigma, g, n, cfg.lift)
+                else:
+                    kappa = torch.full((b,), cfg.kappa_fixed, dtype=torch.float32, device=dev)
+                vf = v_unc + g * ((v_bg - v_unc) + kappa[:, None, None, None] * (v_obj - v_bg))
+                if method == "avg_ode":
+                    # noise-free step; no log-likelihood is tracked for it
+                    new_x = x + dsigma * vf
+                else:
+                    dx = 2.0 * dsigma * vf + noise_i
+                    new_x = x + dx
+                    dlls = ito.dlogq_sde_sigma_space(torch.stack([v_obj, v_bg]), dx, sigma, dsigma)
+                    ll_obj, ll_bg = ll_obj + dlls[:, 0], ll_bg + dlls[:, 1]
+            x = new_x
+            traces["kappa"].append(kappa)
+            traces["ll_obj"].append(ll_obj)
+            traces["ll_bg"].append(ll_bg)
+        traces = {k: torch.stack(v) for k, v in traces.items()}
+        traces.update(final_ll_obj=ll_obj, final_ll_bg=ll_bg, final_ll_uncond=ll_unc)
+        return x, traces
 
 
 def make_sampler(mod: SDModules, method: str, cfg: SDPipelineConfig, *,
@@ -367,7 +371,7 @@ def prepare_contexts(mod: SDModules, method: str, obj: str, bg: str, batch_size:
         "sd_ba": f"{bg} that looks like {obj}", "sd_ba_or": f"{bg} or {obj}",
         "sd_b": bg,
     }.get(method, obj)
-    with torch.no_grad():
+    with torch.no_grad(), profiling.span("encode"):
         return tuple(encode_prompts(mod, [p] * batch_size) for p in (obj_prompt, bg, ""))
 
 
@@ -385,14 +389,16 @@ def generate(
     capture: Optional[bool] = None,
 ) -> dict:
     """End-to-end generation: {"latents", "traces"[, "images" uint8 NHWC]};
-    ``capture`` as in :func:`superdiff_sd_sample`."""
+    ``capture`` as in :func:`superdiff_sd_sample`. The call is a ``request``
+    span around the ``encode``, ``sample`` and ``decode`` spans."""
     cfg = cfg or SDPipelineConfig()
-    ctxs = prepare_contexts(mod, method, obj, bg, batch_size)
-    gen = torch.Generator(device=mod.device).manual_seed(seed)
-    latents, traces = make_sampler(mod, method, cfg, capture=capture)(
-        *ctxs, generator=gen, noise=noise)
-    out = {"latents": latents, "traces": traces}
-    if decode:
-        with torch.no_grad():
-            out["images"] = decode_to_uint8(mod.vae, latents, mod.vae_scaling)
+    with profiling.span("request"):
+        ctxs = prepare_contexts(mod, method, obj, bg, batch_size)
+        gen = torch.Generator(device=mod.device).manual_seed(seed)
+        latents, traces = make_sampler(mod, method, cfg, capture=capture)(
+            *ctxs, generator=gen, noise=noise)
+        out = {"latents": latents, "traces": traces}
+        if decode:
+            with torch.no_grad(), profiling.span("decode"):
+                out["images"] = decode_to_uint8(mod.vae, latents, mod.vae_scaling)
     return out

@@ -1,6 +1,7 @@
-"""Metric logging, timing, image grids, profiling and trace parsing."""
+"""Metric logging, image grids, profiling (traces, phase timing, spans and
+counters) and trace parsing."""
 
-from . import bench_io, images, profiling, traceparse
-from .logging import MetricLogger, Timer
+from . import images, profiling, traceparse
+from .logging import MetricLogger
 
-__all__ = ["MetricLogger", "Timer", "bench_io", "images", "profiling", "traceparse"]
+__all__ = ["MetricLogger", "images", "profiling", "traceparse"]

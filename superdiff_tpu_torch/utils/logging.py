@@ -9,8 +9,6 @@ import os
 import time
 from typing import Optional
 
-import torch
-
 
 class MetricLogger:
     def __init__(self, path: Optional[str] = None, use_wandb: bool = False, **wandb_kw):
@@ -34,17 +32,3 @@ class MetricLogger:
                 f.write(json.dumps(rec) + "\n")
         if self._wandb is not None:
             self._wandb.log(metrics, step=step)
-
-
-class Timer:
-    """Phase timer: ``elapsed(result)`` waits for the card first when
-    ``result`` is (or holds) a CUDA tensor."""
-
-    def __init__(self):
-        self.t0 = time.perf_counter()
-
-    def elapsed(self, result=None) -> float:
-        tensors = result if isinstance(result, (tuple, list)) else (result,)
-        if any(isinstance(r, torch.Tensor) and r.is_cuda for r in tensors):
-            torch.cuda.synchronize()
-        return time.perf_counter() - self.t0

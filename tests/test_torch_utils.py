@@ -1,8 +1,8 @@
-"""The port's profiling utilities (``utils/{traceparse,profiling,bench_io}``):
-the kernel-family taxonomy and the Chrome-trace parser on a small synthetic
+"""The port's profiling utilities (``utils/{traceparse,profiling}``): the
+kernel-family taxonomy and the Chrome-trace parser on a small synthetic
 torch.profiler trace (families and totals), ``profiling.trace`` writing a
-trace on the CPU that the parser reads, the phase timer and memory stats,
-and ``merge_bench_detail`` leaving the same file as the JAX package's."""
+trace on the CPU that the parser reads, the phase timer and memory stats.
+The spans and counters: ``tests/test_torch_tracing.py``."""
 
 import gzip
 import json
@@ -12,8 +12,7 @@ from pathlib import Path
 import pytest
 import torch
 
-from superdiff_tpu.utils import bench_io as jbench_io
-from superdiff_tpu_torch.utils import bench_io, profiling, traceparse
+from superdiff_tpu_torch.utils import profiling, traceparse
 
 REPO = Path(__file__).resolve().parents[1]
 
@@ -130,19 +129,3 @@ def test_phase_timer_and_memory_stats(capsys):
     if not torch.cuda.is_available():
         assert profiling.device_memory_stats() == {}
 
-
-@pytest.mark.parametrize("start", ["absent", "valid", "corrupt"])
-def test_merge_bench_detail_leaves_the_same_file(tmp_path, start):
-    paths = [tmp_path / "port.json", tmp_path / "jax.json"]
-    for p in paths:
-        if start == "valid":
-            p.write_text(json.dumps({"kept": {"a": 1}, "replaced": {"b": 2}}))
-        elif start == "corrupt":
-            p.write_text('{"truncated": ')
-    entries = {"replaced": {"b": 3.5, "c": [1, 2]}, "new": {"ms": 0.125}}
-    got = bench_io.merge_bench_detail(entries, str(paths[0]))
-    jbench_io.merge_bench_detail(entries, str(paths[1]))
-    assert got == str(paths[0].resolve())
-    assert paths[0].read_bytes() == paths[1].read_bytes()
-    assert not Path(str(paths[0]) + ".tmp").exists()
-    assert Path(bench_io.DEFAULT_PATH).resolve() == REPO / "BENCH_DETAIL.json"
