@@ -46,6 +46,10 @@ Phases, in order; any failed check raises and the script exits non-zero:
    scalars as 0-d CUDA tensors, as the captured samplers hand them over, and
    print beside their times the device time of an empty kernel on the same
    grid of clusters in the same kind of graph (the floor of one launch).
+   ``group_norm`` (``GN_SHAPES``: b8's, CIFAR's, the VAE's and b1's largest
+   inputs, a tiny one and the NCSN's fp32 one) against its plain version,
+   two calls bit-identical, with ``F.group_norm`` (+ ``F.silu``) as its
+   library yardstick.
 3. main path: SD-1.x UNet, CLIP text encoder and VAE decoder at their
    default (full) configs, random bf16 weights from ``--seed``, method
    ``or``, 512 px, latent batch 8 (context batch 24 with conditioning
@@ -56,7 +60,9 @@ Phases, in order; any failed check raises and the script exits non-zero:
    capture (a replay counts nothing; phase 5 counts the launches on the
    device), the eager twin (``capture=False``) every step, and each must
    show the steps went through their three kernels and no other. The
-   captured run must equal the eager one bit for bit on the same noise
+   captured run must equal the eager one bit for bit on the same noise;
+   every GroupNorm32 reaches ``group_norm`` (61 calls a UNet forward, 30 a
+   VAE decode; ``group_norm.launches``); the
    (latents and the ``kappa``, ``ll_obj``, ``ll_bg`` traces). Latents must
    be finite, kappa in [0, 1], the images uint8. Per-step ms and peak
    memory of the captured sampler (its first call, then the kept graph)
@@ -122,10 +128,10 @@ Phases, in order; any failed check raises and the script exits non-zero:
    the device's idle share, and the kernels each step replayed (the median
    of the recorded runs: the tracer loses a record now and then, and now and
    then hands a run one more), which
-   must be 1 ``sd_or_step``, 10 ``flash_mha_eod`` and 3 x 16
-   ``geglu_ffn_block`` kernels per 512 px step (768 px: 5 ``_kernel``, 10
+   must be 1 ``sd_or_step``, 10 ``flash_mha_eod``, 3 x 16
+   ``geglu_ffn_block`` and 2 x 61 ``group_norm`` kernels per 512 px step (768 px: 5 ``_kernel``, 10
    other attention; 1024 px: 5 ``_kernel``, 10 ``flash_mha_eod``) and 1
-   ``fused_sde_step`` per CIFAR step; and a
+   ``fused_sde_step`` and 2 x 104 ``group_norm`` per CIFAR step; and a
    32x32-latent SD UNet forward and a batch-4 ScoreUNet forward on the card
    are each held against the same weights in fp32 on the host CPU, as is a
    full-width ``VAEEncoder`` forward at 256 px.
@@ -1010,6 +1016,103 @@ def check_fused_sde_step(dev):
     return c
 
 
+def group_norm_library(x, weight, bias, groups, eps, shift, silu):
+    """``F.group_norm`` (+ ``F.silu``, after the shift's add): the library
+    yardstick of ``group_norm``, timed and used nowhere in the port."""
+    import torch.nn.functional as F
+
+    if shift is not None:
+        x = x + shift[:, :, None, None]
+    y = F.group_norm(x, groups, weight.to(x.dtype), bias.to(x.dtype), eps)
+    return F.silu(y) if silu else y
+
+
+# (shape, fp32, channels_last, shift, SiLU, calls of that shape a 512 px b8
+# UNet step makes): a tiny NHWC row, the NCSN's fp32 NCHW row (H x W odd:
+# the kernel's one-element path), the fp32 UNet's widest row (phase 10d;
+# 1024 threads a block), b8's largest input and its mid-block rows, CIFAR's
+# largest (a ScoreUNet's resnet norm2), the VAE decode's largest (NCHW after
+# its upsampling), b1's largest
+GN_SHAPES = (((2, 40, 5, 6), False, True, True, True, 0),
+             ((4, 32, 33, 31), True, False, False, False, 0),
+             ((2, 2560, 8, 8), True, True, True, True, 0),
+             ((24, 320, 64, 64), False, True, True, True, 4),
+             ((24, 2560, 8, 8), False, True, False, True, 3),
+             ((100, 128, 32, 32), False, True, True, True, 0),
+             ((8, 256, 512, 512), False, False, False, True, 0),
+             ((3, 320, 64, 64), False, True, True, True, 0))
+
+
+def check_group_norm(dev):
+    """``group_norm`` against its plain version on the card at the main
+    paths' shapes (``GN_SHAPES``; bf16 but for two fp32 rows): ms per
+    launch, device time alone, the byte bound (x read once, y written
+    once), the plain version and ``F.group_norm`` (+ ``F.silu``) as
+    ``library_ms``. Two calls on the same inputs must be equal bit for bit
+    (a fixed-order combine) and keep x's strides."""
+    import torch
+
+    from superdiff_tpu_torch.ops import group_norm as m
+
+    c = Check("group_norm", "superdiff_tpu_torch/ops/csrc/group_norm.cu",
+              "none (XLA fuses GroupNorm32: superdiff_tpu/models/unet.py:57)", "bytes")
+    for shape, fp32, cl, shifted, silu, per_step in GN_SHAPES:
+        g = torch.Generator(device=dev).manual_seed(sum(shape))
+        b, ch = shape[:2]
+        dtype = torch.float32 if fp32 else torch.bfloat16
+        x = (2 * torch.randn(*shape, device=dev, generator=g) + 0.5).to(dtype)
+        if cl:
+            x = x.contiguous(memory_format=torch.channels_last)
+        weight = 1 + 0.1 * torch.randn(ch, device=dev, generator=g)
+        bias = 0.1 * torch.randn(ch, device=dev, generator=g)
+        shift = torch.randn(b, ch, device=dev, generator=g).to(dtype) if shifted else None
+        groups = 4 if ch == 40 else 32
+        run = lambda: m.group_norm(x, weight, bias, groups, 1e-5, shift=shift, silu=silu)
+        plain = lambda: m.group_norm_plain(x, weight, bias, groups, 1e-5, shift, silu)
+        got, again, ref = run(), run(), plain()
+        torch.cuda.synchronize()
+        if not torch.equal(got, again) or got.stride() != x.stride():
+            raise AssertionError(f"group_norm {shape}: two calls differ, or strides "
+                                 f"{got.stride()} for {x.stride()}")
+        # fp32 statistics summed in another order and the kernel's SiLU: an
+        # output rounding apart (bf16: 2^-8 of the largest output, twice)
+        err = (got.float() - ref.float()).abs().max().item()
+        scale = ref.float().abs().max().item()
+        tol = (2 * 2.0**-8 if dtype == torch.bfloat16 else 1e-5) * scale
+        ms = time_ms(run)
+        split = (graph_ms(run), host_ms(run))
+        plain_ms = time_ms(plain)
+        lib = graph_ms(lambda: group_norm_library(x, weight, bias, groups, 1e-5, shift, silu))
+        # the roofline: x read once from DRAM and y written (the statistics'
+        # second read of x comes from L2 where x fits there); the two-pass
+        # design's own floor reads x twice from DRAM, as it must where x
+        # does not fit (the VAE's rows)
+        bound = 2 * x.numel() * x.element_size() / PEAK_BYTES * 1e3
+        c.add(shape, err, scale, tol, ms, plain_ms, bound, lib, per_step, split)
+        log(f"  group_norm {shape}: device-only time {split[0] / bound:.2f}x its roofline, "
+            f"{split[0] / (1.5 * bound):.2f}x the two-pass floor (x read twice)")
+        del x, got, again, ref
+        torch.cuda.empty_cache()
+    return c
+
+
+def group_norm_launches():
+    """``group_norm``'s counts, set to 0 (read them after the run)."""
+    from superdiff_tpu_torch.ops.group_norm import group_norm
+
+    for k in group_norm.launches:
+        group_norm.launches[k] = 0
+    return group_norm.launches
+
+
+def expect_group_norms(what, counts, want):
+    """Every GroupNorm32 of a run reached the kernel: ``want`` calls."""
+    got = sum(counts.values())
+    log(f"  {what}: group_norm calls {got} ({', '.join(f'{k} {v}' for k, v in counts.items())})")
+    if got != want:
+        raise AssertionError(f"{what}: {got} group_norm calls, want {want}")
+
+
 def unet_reference_check(mod, dev):
     """One 32x32-latent UNet forward on the card (bf16, kernels: 1024-token
     rows through ``flash_mha_eod``) against the same weights in fp32 on the
@@ -1042,7 +1145,12 @@ def unet_reference_check(mod, dev):
 # (DMAJOR = true).
 KERNELS_PER_CALL = {"sd_or_step": ("sd_or_step", 1), "flash_mha_eod": (EOD, 1),
                     "geglu_ffn_block": ("geglu_ffn_block", 3), "_kernel": (ONLINE, 1),
-                    "_kernel_mh": (ATTN_OTHER, 1), "fused_sde_step": ("fused_sde_step", 1)}
+                    "_kernel_mh": (ATTN_OTHER, 1), "fused_sde_step": ("fused_sde_step", 1),
+                    "group_norm": ("group_norm", 2)}
+
+# GroupNorm32 calls (group_norm launches) in one forward: SD-1.x's UNet, its
+# VAE decoder, one CIFAR ScoreUNet (two a CIFAR step)
+GN_UNET, GN_VAE, GN_SCORE = 61, 30, 52
 
 
 def device_kernels(events):
@@ -1122,7 +1230,8 @@ def profile_step(sampler, ctxs, dev, steps):
         f"{1 - total / wall:.3f}); per step by family (ms): " +
         ", ".join(f"{k} {v / steps:.4f}" for k, v in sorted(fams.items(), key=lambda kv: -kv[1])))
     expect_profiled_launches("captured 512 px or", counts, steps, sd_or_step=1,
-                             flash_mha_eod=10, geglu_ffn_block=16)
+                             flash_mha_eod=10, geglu_ffn_block=16, group_norm=GN_UNET)
+    return counts.get("group_norm", 0) // KERNELS_PER_CALL["group_norm"][1]
 
 
 def draw_nonzero_(model, seed):
@@ -1402,7 +1511,8 @@ def cifar_profile(models, cfg, labels, dev):
         f"{wall / 10:.3f} ms wall per step under the profiler (device idle "
         f"{1 - total / wall:.3f}); by family (ms per step): " + ", ".join(
             f"{k} {v / 10:.4f}" for k, v in sorted(fams.items(), key=lambda kv: -kv[1])))
-    expect_profiled_launches("captured CIFAR sde/or", counts, 10, fused_sde_step=1)
+    expect_profiled_launches("captured CIFAR sde/or", counts, 10, fused_sde_step=1,
+                             group_norm=2 * GN_SCORE)
 
 
 def kernel_wrappers():
@@ -4056,6 +4166,7 @@ def main(argv=None) -> int:
     checks = {"sd_or_step": check_sd_or_step(dev), "flash_mha_eod": check_flash(dev)}
     checks.update(check_geglu(dev))
     checks["fused_sde_step"] = check_fused_sde_step(dev)
+    checks["group_norm"] = check_group_norm(dev)
     checks.update(check_bhld(dev))
     checks.update(check_packed(dev))
     torch.cuda.empty_cache()
@@ -4074,13 +4185,19 @@ def main(argv=None) -> int:
     # the main path: captured, the default on the card; the wrappers count
     # the eager step 0 and the capture (a replay counts nothing; phase 5
     # reads the launches on the device from the profiler)
+    gn_launches = group_norm_launches()
     out, counts, wall = counted_generate(sd, mod, "or", cfg, 8, args.seed, decode=True,
                                          capture=None)
     log(f"  generate (captured): {wall:.3f} s wall")
+    expect_group_norms(f"512 px or, {args.steps} steps captured (step 0 + capture) and the "
+                       "decode", gn_launches, 2 * GN_UNET + GN_VAE)
     expect_counts(f"512 px or, {args.steps} steps captured (step 0 + capture)", counts,
                   sd_or_step=2, flash_mha_eod=20, geglu_ffn_block=32)
     main_counts = counts
+    gn_launches = group_norm_launches()
     eager, eager_counts, _ = counted_generate(sd, mod, "or", cfg, 8, args.seed)
+    expect_group_norms(f"512 px or, {args.steps} steps eager", gn_launches,
+                       args.steps * GN_UNET)
     expect_counts(f"512 px or, {args.steps} steps eager", eager_counts, sd_or_step=args.steps,
                   flash_mha_eod=10 * args.steps, geglu_ffn_block=16 * args.steps)
     same_run(f"512 px or, {args.steps} steps", out, eager)
@@ -4139,7 +4256,7 @@ def main(argv=None) -> int:
                        flash_mha_eod=5, _kernel_mh=5, geglu_ffn_block=16, _kernel=5)
     launches.update({k: got[k] for k in ("_kernel", "_kernel_mh")})
     torch.cuda.empty_cache()
-    profile_step(sampler, ctxs, dev, args.steps)
+    launches["group_norm"] = profile_step(sampler, ctxs, dev, args.steps)
     sd_step_profile(sd, mod, args, dev, 768, sd_or_step=1, flash_mha_eod=5, _kernel_mh=5,
                     geglu_ffn_block=16, _kernel=5)
     sd_step_profile(sd, mod, args, dev, 1024, sd_or_step=1, flash_mha_eod=10,

@@ -257,12 +257,12 @@ class ResnetBlock2D(nn.Module):
                               if in_ch != out_ch else None)
 
     def forward(self, x: torch.Tensor, temb: torch.Tensor) -> torch.Tensor:
-        h = self.conv1(F.silu(self.norm1(x)))
+        h = self.conv1(self.norm1(x, silu=True))
         te = self.time_emb_proj(F.silu(temb))
         if te.shape[0] != h.shape[0]:
             # conditioning dedup: all groups share t, so the tile is exact
             te = te.repeat(h.shape[0] // te.shape[0], 1)
-        h = self.conv2(F.silu(self.norm2(h + te[:, :, None, None])))
+        h = self.conv2(self.norm2(h, shift=te, silu=True))
         if self.conv_shortcut is not None:
             x = self.conv_shortcut(x)
         return x + h
@@ -395,6 +395,6 @@ class SDUNet(nn.Module):
                 up = getattr(self, f"up_{i}_upsample")
                 h = up(h) if cfg.upsample_impl == "subpixel" else up.repeat_forward(h)
         assert not hs
-        h = self.conv_out(F.silu(self.norm_out(h)))
+        h = self.conv_out(self.norm_out(h, silu=True))
         return h.permute(0, 2, 3, 1).float()
 

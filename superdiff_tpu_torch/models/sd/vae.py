@@ -47,8 +47,8 @@ class VAEResnet(nn.Module):
         self.shortcut = nn.Conv2d(in_ch, out_ch, 1, dtype=dtype) if in_ch != out_ch else None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        h = self.conv1(F.silu(self.norm1(x)))
-        h = self.conv2(F.silu(self.norm2(h)))
+        h = self.conv1(self.norm1(x, silu=True))
+        h = self.conv2(self.norm2(h, silu=True))
         if self.shortcut is not None:
             x = self.shortcut(x)
         return x + h
@@ -107,7 +107,7 @@ class VAEDecoder(nn.Module):
             if i != n - 1:
                 h = h.repeat_interleave(2, dim=2).repeat_interleave(2, dim=3)
                 h = getattr(self, f"up_{i}_conv")(h)
-        h = self.conv_out(F.silu(self.norm_out(h)))
+        h = self.conv_out(self.norm_out(h, silu=True))
         return h.permute(0, 2, 3, 1).float()
 
 
@@ -147,7 +147,7 @@ class VAEEncoder(nn.Module):
                 # 1 after each spatial axis, then the unpadded stride-2 conv
                 h = getattr(self, f"down_{i}_conv")(F.pad(h, (0, 1, 0, 1)))
         h = self.mid_res_1(self.mid_attn(self.mid_res_0(h)))
-        h = self.conv_out(F.silu(self.norm_out(h)))
+        h = self.conv_out(self.norm_out(h, silu=True))
         return self.quant_conv(h).permute(0, 2, 3, 1).float()
 
 

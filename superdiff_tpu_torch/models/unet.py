@@ -29,16 +29,26 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops.group_norm import group_norm
+from ..utils import profiling
 from .from_jax import flax_zeros
 
 
 class GroupNorm32(nn.Module):
-    """GroupNorm with float32 statistics, applied in the activation dtype.
+    """GroupNorm with float32 statistics, an optional per-channel input shift
+    and an optional SiLU.
 
     Works on (B, C, *spatial). Groups are the largest divisor of C that is
-    <= ``num_groups``. Mean and the fast variance ``max(E[x^2] - E[x]^2, 0)``
-    are taken in fp32, folded into a per-(batch, channel) ``x * a + b`` and
-    applied in the input's dtype, as the JAX module does.
+    <= ``num_groups``. ``forward(x, shift=None, silu=False)`` returns
+    ``act((x + shift[:, :, None, None]) * a + b)``: each group's mean and
+    fast variance ``max(E[x^2] - E[x]^2, 0)`` are taken in fp32 over the
+    fp32 value of ``x + shift`` and folded into a per-(batch, channel)
+    ``a``, ``b``; the apply is done in fp32 and rounded once to x's dtype,
+    as XLA's fusion of the JAX module (with the sum before it and the SiLU
+    after it) computes it. Every tensor goes through
+    ``ops.group_norm.group_norm``: CUDA tensors take the hand-written
+    kernel, CPU tensors its plain version, under one autograd Function
+    (one backward, forward-mode and vmap rule on either device).
     """
 
     def __init__(self, channels: int, num_groups: int = 32, eps: float = 1e-5):
@@ -50,17 +60,11 @@ class GroupNorm32(nn.Module):
         self.weight = nn.Parameter(torch.ones(channels))
         self.bias = nn.Parameter(torch.zeros(channels))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        b, c = x.shape[:2]
-        xg = x.float().reshape(b, self.groups, -1)
-        mean = xg.mean(-1)
-        var = torch.clamp(xg.square().mean(-1) - mean.square(), min=0.0)
-        rstd = torch.rsqrt(var + self.eps)
-        per_ch = c // self.groups
-        a = rstd.repeat_interleave(per_ch, dim=1) * self.weight.float()
-        bb = self.bias.float() - mean.repeat_interleave(per_ch, dim=1) * a
-        shape = (b, c) + (1,) * (x.ndim - 2)
-        return x * a.reshape(shape).to(x.dtype) + bb.reshape(shape).to(x.dtype)
+    def forward(self, x: torch.Tensor, shift: Optional[torch.Tensor] = None,
+                silu: bool = False) -> torch.Tensor:
+        profiling.count("group_norms")
+        return group_norm(x, self.weight, self.bias, self.groups, self.eps, shift=shift,
+                          silu=silu)
 
 
 class LayerNorm32(nn.Module):
@@ -174,9 +178,10 @@ class ResnetBlock(nn.Module):
 
     def forward(self, x: torch.Tensor, temb: torch.Tensor,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        h = self.Conv_0(F.silu(self.GroupNorm32_0(x)))
-        h = h + self.Dense_0(F.silu(temb))[:, :, None, None]
-        h = self.Conv_1(self.dropout(F.silu(self.GroupNorm32_1(h)), generator))
+        h = self.Conv_0(self.GroupNorm32_0(x, silu=True))
+        te = self.Dense_0(F.silu(temb)).expand(h.shape[0], -1)  # a scalar t: one row
+        h = self.GroupNorm32_1(h, shift=te, silu=True)
+        h = self.Conv_1(self.dropout(h, generator))
         if self.Dense_1 is not None:  # per-pixel shortcut on the NHWC view
             x = self.Dense_1(x.permute(0, 2, 3, 1)).permute(0, 3, 1, 2)
         return x + h
@@ -356,5 +361,5 @@ class ScoreUNet(nn.Module):
             if up is not None:
                 h = sub(up)(h)
         assert not hs
-        h = self.Conv_1(F.silu(self.GroupNorm32_0(h)))
+        h = self.Conv_1(self.GroupNorm32_0(h, silu=True))
         return h.permute(0, 2, 3, 1).float()

@@ -30,7 +30,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 KERNELS = ("sd_fused_step", "flash_attention", "flash_attention_bhld", "geglu_ffn",
-           "fused_step")
+           "fused_step", "group_norm")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",

@@ -9,7 +9,8 @@ the one taxonomy ``chip_smoke.py`` reports every profile in). The port's
 own kernels are families of their own: ``fused_sde_step``, the
 online-softmax attention body (``_kernel``), the d-major two-pass body
 (``flash_mha_eod``), the other bodies of the ``wgmma`` attention core, the
-three launches of ``geglu_ffn_block`` and ``sd_or_step``; library work
+three launches of ``geglu_ffn_block``, ``sd_or_step`` and the two launches
+of ``group_norm``; library work
 falls into convolution, GEMM, softmax, reduction and the elementwise /
 copy / cat glue.
 """
@@ -33,6 +34,7 @@ FAMILIES = (("fused_sde_step", ("fused_sde_step",)),
             (ATTN_OTHER, ("attn_sm90",)),
             ("geglu_ffn_block", ("geglu_",)),
             ("sd_or_step", ("or_step",)),
+            ("group_norm", ("group_norm_",)),
             ("convolution", ("conv", "fprop", "implicit", "cudnn", "nchw", "nhwc")),
             ("gemm", ("gemm", "cutlass", "cublas", "nvjet")),
             ("softmax", ("softmax",)),

@@ -17,6 +17,7 @@ from superdiff_tpu_torch.core import superpose as sp
 from superdiff_tpu_torch.models.sd.clip import CLIPTextConfig
 from superdiff_tpu_torch.models.sd.unet import SDUNetConfig
 from superdiff_tpu_torch.models.sd.vae import VAEConfig
+from superdiff_tpu_torch.models.unet import GroupNorm32
 from superdiff_tpu_torch.pipelines import cifar, sd
 from superdiff_tpu_torch.utils import profiling
 
@@ -55,6 +56,12 @@ def _tree(rec):
     return by_id, kids
 
 
+def _norms(*nets):
+    """The GroupNorm32 modules of ``nets``: each counts one ``group_norms``
+    a forward."""
+    return sum(isinstance(m, GroupNorm32) for net in nets for m in net.modules())
+
+
 def _one(rec, name):
     found = [s for s in rec.spans if s.name == name]
     assert len(found) == 1, (name, [s.name for s in rec.spans])
@@ -86,7 +93,8 @@ def test_sd_request_tree():
     assert kids[sample.id] == ["steps"] and kids[steps.id] == ["step"] * STEPS
     assert kids[_one(rec, "encode").id] == [] and kids[_one(rec, "decode").id] == []
     assert steps.counts == {"steps_eager": STEPS} and sample.counts == {"loops_built": 1}
-    assert rec.totals == {"steps_eager": STEPS, "loops_built": 1}
+    assert rec.totals == {"steps_eager": STEPS, "loops_built": 1,
+                          "group_norms": STEPS * _norms(mod.unet) + _norms(mod.vae)}
     for s in rec.spans:
         assert s.end_ns is not None and s.start_ns <= s.end_ns
         assert s.device_ms() is None  # no card
@@ -105,17 +113,22 @@ def test_sd_eager_methods_have_steps(method):
     _, kids = _tree(rec)
     assert kids[_one(rec, "sample").id] == ["steps"]
     assert kids[_one(rec, "steps").id] == ["step"] * STEPS
-    assert rec.totals == {"steps_eager": STEPS}
+    assert rec.totals == {"steps_eager": STEPS, "group_norms": STEPS * _norms(mod.unet)}
 
 
-def _cifar_generator(mode="sde", operator="or"):
+def _cifar_generator(mode="sde", operator="or", models=None):
     cfg = cifar.CifarConfig(**TINY_CIFAR)
-    models = cifar.build_cifar_models([0, 1], cfg, "cpu")
+    models = cifar.build_cifar_models([0, 1], cfg, "cpu") if models is None else models
     return cifar.make_generator(models, cfg, mode=mode, operator=operator, n_steps=STEPS)
 
 
+def _cifar_models():
+    return cifar.build_cifar_models([0, 1], cifar.CifarConfig(**TINY_CIFAR), "cpu")
+
+
 def test_cifar_request_tree():
-    gen = _cifar_generator()
+    models = _cifar_models()
+    gen = _cifar_generator(models=models)
     g = torch.Generator().manual_seed(3)
     with profiling.record() as rec:
         x0, logq = gen(generator=g)
@@ -126,17 +139,19 @@ def test_cifar_request_tree():
     assert kids[request.id] == ["sample"]
     assert kids[_one(rec, "sample").id] == ["load", "steps"]
     assert kids[_one(rec, "steps").id] == ["step"] * STEPS
-    assert rec.totals == {"steps_eager": STEPS, "loops_built": 1}
+    assert rec.totals == {"steps_eager": STEPS, "loops_built": 1,
+                          "group_norms": STEPS * _norms(*models)}
     assert not any(s.name in ("encode", "decode") for s in rec.spans)
 
 
 def test_cifar_eager_modes_have_steps():
-    gen = _cifar_generator(operator="avg")
+    models = _cifar_models()
+    gen = _cifar_generator(operator="avg", models=models)
     with profiling.record() as rec:
         gen(generator=torch.Generator().manual_seed(4))
     _, kids = _tree(rec)
     assert kids[_one(rec, "sample").id] == ["steps"]
-    assert rec.totals == {"steps_eager": STEPS}
+    assert rec.totals == {"steps_eager": STEPS, "group_norms": STEPS * _norms(*models)}
 
 
 def test_kept_loop_counts_replays_and_loads(monkeypatch):
@@ -156,14 +171,20 @@ def test_kept_loop_counts_replays_and_loads(monkeypatch):
 
     monkeypatch.setattr(capture, "capture_step", capture_step)
     monkeypatch.setattr(sp, "want_capture", lambda c, dev, what: True)
-    gen = _cifar_generator()
+    models = _cifar_models()
+    gen = _cifar_generator(models=models)
     seen = []
     for seed in (5, 6):
         with profiling.record() as rec:
             gen(generator=torch.Generator().manual_seed(seed))
         seen.append((dict(rec.totals), [s.name for s in rec.spans if s.name == "load"]))
-    assert seen[0] == ({"loops_built": 1, "steps_replayed": STEPS - 1}, ["load"])
-    assert seen[1] == ({"steps_replayed": STEPS}, ["load", "load"])
+    # the stand-in runs step 0 at its capture and the step again at each
+    # replay: each run of the step counts the nets' norms
+    per_step = _norms(*models)
+    assert seen[0] == ({"loops_built": 1, "steps_replayed": STEPS - 1,
+                        "group_norms": STEPS * per_step}, ["load"])
+    assert seen[1] == ({"steps_replayed": STEPS, "group_norms": STEPS * per_step},
+                       ["load", "load"])
 
 
 def test_spans_share_the_kineto_clock_and_emit_no_range():
@@ -257,7 +278,9 @@ def test_captured_runs_count_and_time_on_the_card(card):
         totals.append(dict(rec.totals))
         for s in rec.spans:
             assert s.device_ms() is not None and s.device_ms() >= 0, s.name
-    assert totals[0] == {"loops_built": 1, "graphs_captured": 1, "steps_replayed": STEPS - 1}
+    # the norms of the eager step 0 and of the capture; a replay counts none
+    assert totals[0] == {"loops_built": 1, "graphs_captured": 1, "steps_replayed": STEPS - 1,
+                         "group_norms": 2 * _norms(*models)}
     assert totals[1] == {"steps_replayed": STEPS}
     assert [s.name for s in rec.spans].count("load") == 2
 
