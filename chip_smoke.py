@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py [--steps 4] [--seed 0] [--cifar-steps 50]
     python3 chip_smoke.py --phase9-only   # phase 9 alone (so --phase6-only .. --phase10-only)
+    python3 chip_smoke.py --sdxl-only     # phase 2's SDXL rows and phase 3f alone
 
 Phases, in order; any failed check raises and the script exits non-zero:
 
@@ -25,10 +26,10 @@ Phases, in order; any failed check raises and the script exits non-zero:
    cross-attention), the plain version looped over the batch.
    The d-major kernel is held both to the plain version that rounds as
    pvtd does (``_plain_1block(sum="bf16")`` on the transposed views) and to
-   the fp32 ``_reference_eod``.
+   the fp32 ``_reference_eod``, at SD-1.x's head dims and at SDXL's 64.
    The FFN kernel in its four configurations (``GEGLU_CONFIGS``): the SD
    block (LN + residual, the exact-erf polynomial) at the 512 and 768 px
-   shapes, and the block with the tanh gelu and the unfused ``geglu_ffn``
+   shapes and SDXL's 1024 px ones, and the block with the tanh gelu and the unfused ``geglu_ffn``
    with either gelu at a tiny shape and the four 512 px shapes (no served
    path calls these three: their ``launches``, each configuration's own
    count over the main path's run, are 0).
@@ -40,15 +41,15 @@ Phases, in order; any failed check raises and the script exits non-zero:
    also gives its device time alone (launches captured in a CUDA graph and
    replayed) and the wrapper's host cost (host clock over launches without
    a synchronise). The step epilogues ``sd_or_step`` ((3, 4100), (8, 16384),
-   (8, 36864), (8, 65536)) and ``fused_sde_step`` ((3, 10, 384),
-   (2, 16, 256), (2, 100, 3072), and the 2-D walkthrough's (2, 512, 2), whose
+   (8, 36864), (8, 65536), SDXL's (4, 65536)) and ``fused_sde_step``
+   ((3, 10, 384), (2, 16, 256), (2, 100, 3072), and the 2-D walkthrough's (2, 512, 2), whose
    rows of 2 take the kernel's scalar path; with and without ties) take their step
    scalars as 0-d CUDA tensors, as the captured samplers hand them over, and
    print beside their times the device time of an empty kernel on the same
    grid of clusters in the same kind of graph (the floor of one launch).
    ``group_norm`` (``GN_SHAPES``: b8's, CIFAR's, the VAE's and b1's largest
-   inputs, a tiny one and the NCSN's fp32 one) against its plain version,
-   two calls bit-identical, with ``F.group_norm`` (+ ``F.silu``) as its
+   inputs, a tiny one, the NCSN's fp32 one, SDXL's at 1024 px) against its
+   plain version, two calls bit-identical, with ``F.group_norm`` (+ ``F.silu``) as its
    library yardstick.
 3. main path: SD-1.x UNet, CLIP text encoder and VAE decoder at their
    default (full) configs, random bf16 weights from ``--seed``, method
@@ -75,7 +76,8 @@ Phases, in order; any failed check raises and the script exits non-zero:
    1 of ``sd_or_step``; captured and eager, held bit for bit and timed in
    turns. Then one step at 1024 px the same way (16384-token rows in the
    online-softmax kernel, head dims 80 and 160 in the d-major kernel).
-   Phases 3c-3e run their steps eagerly, each launch counted.
+   Phases 3c-3e run their steps eagerly, each launch counted; 3f runs
+   SDXL captured and eager.
    3c. 512 px under ``attn_impl="flash_eo"`` (2 steps), then one step under
    every other ``_LONG_IMPL`` name and one under ``attn_impl="flash"``, each
    counted under its own TPU-kernel name; the latents under the bf16-sum
@@ -97,6 +99,11 @@ Phases, in order; any failed check raises and the script exits non-zero:
    plain versions and of the default path, and one UNet forward within 5e-2
    relative L2 of the plain versions'. The two-step distances are printed
    (``sd_packed_phase`` says why they are not held).
+   3f. SDXL base 1.0 through ``generate`` at 1024 px, latent batch 4,
+   ``or``, its UNet at a reduced transformer depth (``SDXL_DEPTH``, every
+   width published): the captured run held bit for bit to its eager twin,
+   the launches of step 0 and the capture counted, ms a step printed
+   (``sdxl_phase``).
 4. CIFAR joint sampler: two full-width ``vpsdeA`` ScoreUNets (36.0 M
    parameters each, bf16 compute) with drawn non-zero weights, labels tiled
    0-9, batch 100, ``--cifar-steps`` SDE/OR steps through ``make_generator``
@@ -483,7 +490,14 @@ def empty_launch(like, cluster, rows):
     _build.check(lib.launch_floor(cluster, rows, _build.stream_ptr(like)), "launch_floor")
 
 
-def check_sd_or_step(dev):
+# (3, 4100): a row split unevenly over a cluster; 512, 768 and 1024 px at
+# latent batch 8; SDXL's 1024 px at latent batch 4
+SD_OR_SHAPES_XL = (((4, 65536), 0),)
+SD_OR_SHAPES = ((((3, 4100), 0), ((8, 16384), 1), ((8, 36864), 0), ((8, 65536), 0))
+                + SD_OR_SHAPES_XL)
+
+
+def check_sd_or_step(dev, shapes=SD_OR_SHAPES):
     import torch
 
     from superdiff_tpu_torch.ops import sd_fused_step as m
@@ -493,9 +507,7 @@ def check_sd_or_step(dev):
     # the step scalars as the sampler hands them over: 0-d views of a device table
     scal = torch.tensor([14.6146, -0.3279], device=dev)
     sigma, dsigma = scal.unbind()
-    # (3, 4100): a row split unevenly over a cluster; 512, 768 and 1024 px
-    for (b, d), per_step in (((3, 4100), 0), ((8, 16384), 1), ((8, 36864), 0),
-                             ((8, 65536), 0)):
+    for (b, d), per_step in shapes:
         g = torch.Generator(device=dev).manual_seed(b)
         rows = [torch.randn(b, d, device=dev, generator=g) for _ in range(5)]
         ll = torch.randn(b, 2, device=dev, generator=g) * 3
@@ -523,12 +535,24 @@ def check_sd_or_step(dev):
     return c
 
 
-def check_flash(dev):
-    """The d-major kernel (``flash_mha_eod``) at a tiny shape, a partial q
-    tile and every 512 / 768 / 1024 px shape, held against two plain
-    versions: ``_plain_1block(sum="bf16")`` on the transposed views, which
-    rounds as pvtd does (q * scale, p and the output to bf16), and the fp32
-    ``_reference_eod``."""
+# (B, H, D, L) rows of check_flash and their launches a 512 px SD-1.x step:
+# a tiny shape, a partial q tile (576 tokens: a partial last q tile of 128
+# rows, and at D = 80 a partial last kv tile of 128), the 512 px rows, the
+# 768 px level-1 rows and levels 1 and 2 at 1024 px; then SDXL's head dim
+# 64: a tiny shape and 1024 px (a step at latent batch 4 launches 10 at
+# (12, 10, 64, 4096) and 60 at (12, 20, 64, 1024); none on the SD-1.x step)
+FLASH_SHAPES = (((2, 2, 40, 256), 0), ((2, 2, 80, 576), 0), ((2, 2, 160, 576), 0),
+                ((8, 8, 40, 4096), 1), ((24, 8, 40, 4096), 4), ((24, 8, 80, 1024), 5),
+                ((24, 8, 80, 2304), 0), ((24, 8, 80, 4096), 0), ((24, 8, 160, 1024), 0))
+FLASH_SHAPES_D64 = (((2, 2, 64, 512), 0), ((4, 10, 64, 4096), 0), ((12, 10, 64, 4096), 0),
+                    ((12, 20, 64, 1024), 0))
+
+
+def check_flash(dev, shapes=FLASH_SHAPES + FLASH_SHAPES_D64):
+    """The d-major kernel (``flash_mha_eod``) at ``shapes``, held against two
+    plain versions: ``_plain_1block(sum="bf16")`` on the transposed views,
+    which rounds as pvtd does (q * scale, p and the output to bf16), and the
+    fp32 ``_reference_eod``."""
     import torch
     import torch.nn.functional as F
 
@@ -536,12 +560,6 @@ def check_flash(dev):
 
     c = Check("flash_mha_eod", "superdiff_tpu_torch/ops/csrc/flash_attention.cu",
               "superdiff_tpu/ops/pallas/flash_attention.py:254", "operations")
-    # the last four: the 768 px level-1 rows, and levels 1 and 2 at 1024 px
-    # (576 tokens: a partial last q tile of 128 rows, and at D = 80 a
-    # partial last kv tile of 128)
-    shapes = (((2, 2, 40, 256), 0), ((2, 2, 80, 576), 0), ((2, 2, 160, 576), 0),
-              ((8, 8, 40, 4096), 1), ((24, 8, 40, 4096), 4), ((24, 8, 80, 1024), 5),
-              ((24, 8, 80, 2304), 0), ((24, 8, 80, 4096), 0), ((24, 8, 160, 1024), 0))
     for (b, h, d, l), per_step in shapes:
         g = torch.Generator(device=dev).manual_seed(l + d)
         qt = torch.randn(b, h, d, l, device=dev, generator=g).to(torch.bfloat16)
@@ -841,21 +859,28 @@ GEGLU_CONFIGS = (("geglu_ffn_block", True, False), ("geglu_ffn_block[tanh]", Tru
                  ("geglu_ffn[erf]", False, False), ("geglu_ffn[tanh]", False, True))
 
 
-def check_geglu(dev):
-    """Every configuration of the FFN kernel against its plain version: the
-    SD block (exact-erf polynomial, LN + residual) at the 512 and 768 px
-    shapes, the other three at a tiny shape and the four 512 px ones."""
+# (M, C) rows of the FFN kernel and their launches a 512 px SD-1.x step: a
+# tiny shape, the four 512 px rows, the 768 px rows (9216, 2304, 576 and 144
+# tokens at batch 24); then SDXL's at 1024 px, latent batch 4 (4096 tokens
+# at C 640 and 1024 at C 1280 over 12 conditioned rows)
+GEGLU_SHAPES_XL = (((12 * 4096, 640), 0), ((12 * 1024, 1280), 0))
+GEGLU_SHAPES = (((192, 64), 0), ((24 * 4096, 320), 5), ((24 * 1024, 640), 5),
+                ((24 * 256, 1280), 5), ((24 * 64, 1280), 1),
+                ((24 * 9216, 320), 0), ((24 * 2304, 640), 0), ((24 * 576, 1280), 0),
+                ((24 * 144, 1280), 0)) + GEGLU_SHAPES_XL
+
+
+def check_geglu(dev, sd_shapes=GEGLU_SHAPES, configs=GEGLU_CONFIGS):
+    """The configurations ``configs`` of the FFN kernel against their plain
+    versions: the SD block (exact-erf polynomial, LN + residual) at
+    ``sd_shapes``, the other three at a tiny shape and the four 512 px
+    ones."""
     import torch
 
     from superdiff_tpu_torch.ops import geglu_ffn as m
 
-    # the last four: the 768 px rows (9216, 2304, 576 and 144 tokens at batch 24)
-    sd_shapes = (((192, 64), 0), ((24 * 4096, 320), 5), ((24 * 1024, 640), 5),
-                 ((24 * 256, 1280), 5), ((24 * 64, 1280), 1),
-                 ((24 * 9216, 320), 0), ((24 * 2304, 640), 0), ((24 * 576, 1280), 0),
-                 ((24 * 144, 1280), 0))
     checks = {}
-    for name, fused, tanh in GEGLU_CONFIGS:
+    for name, fused, tanh in configs:
         c = checks[name] = Check(name, "superdiff_tpu_torch/ops/csrc/geglu_ffn.cu",
                                  "superdiff_tpu/ops/pallas/geglu_ffn.py:114", "operations")
         # per_step: launches in a 512 px SD step (only the SD block has any);
@@ -1027,6 +1052,13 @@ def group_norm_library(x, weight, bias, groups, eps, shift, silu):
     return F.silu(y) if silu else y
 
 
+# SDXL at 1024 px, latent batch 4 (12 rows from the first resnet on): a
+# level-0 resnet's norm2, the largest UNet input (the first level-0 up
+# resnet's norm1, 640 + 320 channels), the VAE decode's largest (NCHW)
+GN_SHAPES_XL = (((12, 320, 128, 128), False, True, True, True, 0),
+                ((12, 960, 128, 128), False, True, False, True, 0),
+                ((4, 128, 1024, 1024), False, False, False, True, 0))
+
 # (shape, fp32, channels_last, shift, SiLU, calls of that shape a 512 px b8
 # UNet step makes): a tiny NHWC row, the NCSN's fp32 NCHW row (H x W odd:
 # the kernel's one-element path), the fp32 UNet's widest row (phase 10d;
@@ -1040,10 +1072,10 @@ GN_SHAPES = (((2, 40, 5, 6), False, True, True, True, 0),
              ((24, 2560, 8, 8), False, True, False, True, 3),
              ((100, 128, 32, 32), False, True, True, True, 0),
              ((8, 256, 512, 512), False, False, False, True, 0),
-             ((3, 320, 64, 64), False, True, True, True, 0))
+             ((3, 320, 64, 64), False, True, True, True, 0)) + GN_SHAPES_XL
 
 
-def check_group_norm(dev):
+def check_group_norm(dev, shapes=GN_SHAPES):
     """``group_norm`` against its plain version on the card at the main
     paths' shapes (``GN_SHAPES``; bf16 but for two fp32 rows): ms per
     launch, device time alone, the byte bound (x read once, y written
@@ -1056,7 +1088,7 @@ def check_group_norm(dev):
 
     c = Check("group_norm", "superdiff_tpu_torch/ops/csrc/group_norm.cu",
               "none (XLA fuses GroupNorm32: superdiff_tpu/models/unet.py:57)", "bytes")
-    for shape, fp32, cl, shifted, silu, per_step in GN_SHAPES:
+    for shape, fp32, cl, shifted, silu, per_step in shapes:
         g = torch.Generator(device=dev).manual_seed(sum(shape))
         b, ch = shape[:2]
         dtype = torch.float32 if fp32 else torch.bfloat16
@@ -1719,6 +1751,62 @@ def finite(what, *tensors):
     for t in tensors:
         if not torch.isfinite(t).all():
             raise AssertionError(f"{what}: not finite")
+
+
+SDXL_DEPTH = (1, 1, 2)  # phase 3f's UNet depth per level (published: (1, 2, 10))
+
+
+def sdxl_kernel_rows(dev):
+    """Phase 2's rows at SDXL's 1024 px shapes alone, for ``--sdxl-only``:
+    ``sd_or_step``, the d-major kernel at head dim 64, the SD FFN block,
+    ``group_norm``."""
+    check_sd_or_step(dev, SD_OR_SHAPES_XL)
+    check_flash(dev, FLASH_SHAPES_D64)
+    check_geglu(dev, GEGLU_SHAPES_XL, GEGLU_CONFIGS[:1])
+    check_group_norm(dev, GN_SHAPES_XL)
+
+
+def sdxl_phase(sd, dev, args):
+    """SDXL base 1.0 through ``generate`` at 1024 px, latent batch 4, ``or``,
+    its UNet at ``SDXL_DEPTH`` (every other width published): a captured
+    run held bit for bit to its eager twin on the same noise, with the
+    launches of step 0 and the capture (17 self-attentions over more than
+    256 tokens a forward at this depth, 17 FFN blocks), and the ms a step
+    of each."""
+    import torch
+
+    from superdiff_tpu_torch.models.sd.unet import SDUNetConfig
+
+    ucfg = SDUNetConfig.sdxl_base(transformer_layers_per_block=SDXL_DEPTH)
+    t0 = time.perf_counter()
+    mod = sd.build_sd_modules(args.seed, unet_config=ucfg, device=dev, dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    log(f"  build_sd_modules (SDXL, depth {SDXL_DEPTH}, random bf16 weights): "
+        f"{time.perf_counter() - t0:.2f} s")
+    cfg = sd.SDPipelineConfig(num_inference_steps=args.steps, guidance_scale=5.0, height=1024,
+                              width=1024)
+    out, counts, wall = counted_generate(sd, mod, "or", cfg, 4, args.seed, decode=True,
+                                         capture=None)
+    log(f"  generate (captured, decode): {wall:.3f} s wall")
+    per_forward = 17
+    expect_counts(f"1024 px SDXL or, {args.steps} steps captured (step 0 + capture)", counts,
+                  sd_or_step=2, flash_mha_eod=2 * per_forward,
+                  geglu_ffn_block=2 * per_forward)
+    eager, eager_counts, eager_wall = counted_generate(sd, mod, "or", cfg, 4, args.seed)
+    expect_counts(f"1024 px SDXL or, {args.steps} steps eager", eager_counts,
+                  sd_or_step=args.steps, flash_mha_eod=per_forward * args.steps,
+                  geglu_ffn_block=per_forward * args.steps)
+    same_run(f"1024 px SDXL or, {args.steps} steps", out, eager)
+    lat, kappa, img = out["latents"], out["traces"]["kappa"], out["images"]
+    finite("1024 px SDXL or", lat, kappa)
+    if lat.shape != (4, 128, 128, 4) or img.shape != (4, 1024, 1024, 3):
+        raise AssertionError(f"SDXL latents {tuple(lat.shape)}, images {tuple(img.shape)}")
+    _, _, replayed_wall = counted_generate(sd, mod, "or", cfg, 4, args.seed, capture=True)
+    log(f"  captured first call {wall * 1e3 / args.steps:.1f} ms a step (with the decode), "
+        f"eager {eager_wall * 1e3 / args.steps:.1f}; a fresh captured call (capture, no "
+        f"decode) {replayed_wall * 1e3 / args.steps:.1f}; kappa last step "
+        f"{[round(v, 6) for v in kappa[-1].tolist()]}; peak "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
 
 
 def sd_768_phase(sd, mod, args, dev):
@@ -4097,6 +4185,10 @@ def main(argv=None) -> int:
                     help="run phase 8 alone (main() starts it so, in a fresh process)")
     ap.add_argument("--phase9-only", action="store_true",
                     help="run phase 9 alone (main() starts it so, in a fresh process)")
+    ap.add_argument("--sdxl-only", action="store_true",
+                    help="run the SDXL checks alone: phase 2's rows at SDXL's shapes, then "
+                    "phase 3f (a 1024 px SDXL or run at a reduced depth, captured against "
+                    "eager)")
     ap.add_argument("--phase10-only", action="store_true",
                     help="run phase 10 alone, one process per visible card (main() starts "
                     "it so, in a fresh process)")
@@ -4134,6 +4226,14 @@ def main(argv=None) -> int:
         return 0
     if args.phase10_only:
         phase10(args)
+        return 0
+    if args.sdxl_only:
+        log_phase("SDXL: phase 2's rows at SDXL's shapes")
+        sdxl_kernel_rows(dev)
+        torch.cuda.empty_cache()
+        log_phase("phase 3f: SDXL base 1.0, or, 1024 px, latent batch 4, at a reduced depth")
+        sdxl_phase(sd, dev, args)
+        print(json.dumps({"ok": True, "phase": "sdxl"}))
         return 0
     card = card_line()
     log(f"torch {torch.__version__} cuda {torch.version.cuda}; {torch.cuda.get_device_name(0)}")
@@ -4231,6 +4331,11 @@ def main(argv=None) -> int:
 
     log_phase("phase 3e: the packed-layout paths (flash_nat, _CROSS_IMPL xpk / nat)")
     launches.update(sd_packed_phase(sd, mod, args, dev))
+    torch.cuda.empty_cache()
+
+    log_phase("phase 3f: SDXL base 1.0, or, 1024 px, latent batch 4, at a reduced depth")
+    sdxl_phase(sd, dev, args)
+    torch.cuda.empty_cache()
 
     log_phase(f"phase 4: CIFAR joint sampler (vpsdeA, 2 models, batch 100, sde/or, "
         f"{args.cifar_steps} steps)")

@@ -1,10 +1,16 @@
 """CLIP text encoder (ViT-L/14 text tower) for SD conditioning (port of
-``superdiff_tpu/models/sd/clip.py``).
+``superdiff_tpu/models/sd/clip.py``), and SDXL's two towers.
 
 12-layer causal transformer, width 768, 12 heads, quick-GELU, fp32
-LayerNorms; returns the fp32 last hidden state (B, 77, 768). The tokenizer
-is the HF ``CLIPTokenizer`` when ``transformers`` and a local vocab exist,
-else the JAX package's deterministic crc32 fallback.
+LayerNorms; returns the fp32 last hidden state (B, 77, 768). SDXL reads
+its towers otherwise (``CLIPTextConfig.output="penultimate"``): the hidden
+states before the last layer, without the final LayerNorm, and, where the
+tower has a ``text_projection`` (OpenCLIP ViT-bigG/14: 32 layers, width
+1280, exact gelu), the pooled embedding: the final LayerNorm at the first
+end token, projected with no bias. A tower with no projection skips its
+last layer there, whose output nothing reads. The tokenizer is the HF
+``CLIPTokenizer`` when ``transformers`` and a local vocab exist, else the
+JAX package's deterministic crc32 fallback.
 """
 
 from __future__ import annotations
@@ -17,6 +23,7 @@ from typing import Optional
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from ..unet import LayerNorm32
@@ -29,14 +36,44 @@ class CLIPTextConfig:
     num_layers: int = 12
     num_heads: int = 12
     max_length: int = 77
+    hidden_act: str = "quick_gelu"  # or "gelu" (exact, OpenCLIP ViT-bigG/14)
+    projection_dim: int = 0  # the pooled embedding's text_projection width; 0: none
+    # "last": the final LayerNorm's states; "penultimate": (the states before
+    # the last layer, the pooled embedding or None), as SDXL reads them
+    output: str = "last"
+
+    def __post_init__(self):
+        if self.hidden_act not in _ACTS:
+            raise ValueError(f"hidden_act {self.hidden_act!r}; one of {sorted(_ACTS)}")
+        if self.output not in ("last", "penultimate"):
+            raise ValueError(f"output {self.output!r}; 'last' or 'penultimate'")
+
+    @property
+    def eos_id(self) -> int:
+        """The end token's id (the crc32 fallback's, for a small vocabulary)."""
+        return Tokenizer.EOS if Tokenizer.EOS < self.vocab_size else 2
 
     @staticmethod
     def tiny() -> "CLIPTextConfig":
         return CLIPTextConfig(vocab_size=1000, hidden_size=64, num_layers=2, num_heads=4)
 
+    @staticmethod
+    def sdxl_l() -> "CLIPTextConfig":
+        """SDXL base 1.0's ``text_encoder`` (CLIP ViT-L/14), read penultimate."""
+        return CLIPTextConfig(output="penultimate")
+
+    @staticmethod
+    def sdxl_g() -> "CLIPTextConfig":
+        """SDXL base 1.0's ``text_encoder_2`` (OpenCLIP ViT-bigG/14)."""
+        return CLIPTextConfig(hidden_size=1280, num_layers=32, num_heads=20, hidden_act="gelu",
+                              projection_dim=1280, output="penultimate")
+
 
 def quick_gelu(x: torch.Tensor) -> torch.Tensor:
     return x * torch.sigmoid(1.702 * x)
+
+
+_ACTS = {"quick_gelu": quick_gelu, "gelu": F.gelu}
 
 
 class CLIPAttention(nn.Module):
@@ -68,15 +105,18 @@ class CLIPLayer(nn.Module):
         self.layer_norm2 = LayerNorm32(c)
         self.fc1 = nn.Linear(c, 4 * c, dtype=dtype)
         self.fc2 = nn.Linear(4 * c, c, dtype=dtype)
+        self.act = _ACTS[cfg.hidden_act]
 
     def forward(self, x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
         x = x + self.self_attn(self.layer_norm1(x), mask)
-        h = quick_gelu(self.fc1(self.layer_norm2(x).to(self.fc1.weight.dtype)))
+        h = self.act(self.fc1(self.layer_norm2(x).to(self.fc1.weight.dtype)))
         return x + self.fc2(h)
 
 
 class CLIPTextEncoder(nn.Module):
-    """token ids (B, L) int -> fp32 hidden states (B, L, hidden)."""
+    """token ids (B, L) int -> fp32 hidden states (B, L, hidden); with
+    ``output="penultimate"`` (the states before the last layer, and the
+    pooled embedding (B, projection_dim) or None), fp32."""
 
     def __init__(self, cfg: CLIPTextConfig = CLIPTextConfig(), dtype=torch.bfloat16):
         super().__init__()
@@ -87,25 +127,41 @@ class CLIPTextEncoder(nn.Module):
         for i in range(cfg.num_layers):
             self.add_module(f"layer_{i}", CLIPLayer(cfg, dtype))
         self.final_layer_norm = LayerNorm32(cfg.hidden_size)
+        if cfg.projection_dim:
+            self.text_projection = nn.Linear(cfg.hidden_size, cfg.projection_dim, bias=False,
+                                             dtype=dtype)
 
-    def forward(self, input_ids: torch.Tensor) -> torch.Tensor:
+    def forward(self, input_ids: torch.Tensor):
+        cfg = self.cfg
         l = input_ids.shape[1]
         x = self.token_embedding(input_ids) + self.position_embedding[None, :l].to(self.dtype)
-        causal = torch.triu(torch.full((l, l), -1e9, device=x.device), diagonal=1)
-        for i in range(self.cfg.num_layers):
-            x = getattr(self, f"layer_{i}")(x, causal[None, None])
-        return self.final_layer_norm(x)
+        causal = torch.triu(torch.full((l, l), -1e9, device=x.device), diagonal=1)[None, None]
+        layers = [getattr(self, f"layer_{i}") for i in range(cfg.num_layers)]
+        for layer in layers[:-1]:
+            x = layer(x, causal)
+        if cfg.output == "penultimate" and not cfg.projection_dim:
+            return x.float(), None  # nothing reads the last layer's output
+        penultimate, x = x, layers[-1](x, causal)
+        if cfg.output == "last":
+            return self.final_layer_norm(x)
+        # the first end token of each row
+        eos = (input_ids == cfg.eos_id).int().argmax(dim=1)
+        pooled = self.final_layer_norm(x[torch.arange(x.shape[0], device=x.device), eos])
+        return penultimate.float(), self.text_projection(pooled.to(self.dtype)).float()
 
 
 class Tokenizer:
-    """HF CLIPTokenizer when available, deterministic crc32 fallback otherwise."""
+    """HF CLIPTokenizer when available, deterministic crc32 fallback otherwise.
+    ``pad_id``: the fallback's padding after the end token (None: the end
+    token, as CLIP-L's tokenizer pads; 0, "!", as SDXL's ``tokenizer_2``)."""
 
     # CLIP's real special-token ids, used by the fallback too
     BOS = 49406
     EOS = 49407
 
-    def __init__(self, cfg: CLIPTextConfig, hf_path: Optional[str] = None):
-        self.cfg = cfg
+    def __init__(self, cfg: CLIPTextConfig, hf_path: Optional[str] = None,
+                 pad_id: Optional[int] = None):
+        self.cfg, self.pad_id = cfg, pad_id
         self._hf = None
         if hf_path:
             try:
@@ -139,8 +195,9 @@ class Tokenizer:
             return out["input_ids"].astype(np.int32)
         # fallback: bos, per-word crc32 tokens, eos, pad with eos
         bos = self.BOS if self.BOS < c.vocab_size else 1
-        eos = self.EOS if self.EOS < c.vocab_size else 2
-        ids = np.full((len(prompts), c.max_length), eos, dtype=np.int32)
+        eos = c.eos_id
+        pad = eos if self.pad_id is None else self.pad_id
+        ids = np.full((len(prompts), c.max_length), pad, dtype=np.int32)
         ids[:, 0] = bos
         for i, p in enumerate(prompts):
             toks = [3 + (zlib.crc32(w.encode()) % (c.vocab_size - 4))

@@ -1,7 +1,8 @@
-"""Stable-Diffusion 1.x conditional UNet (port of ``superdiff_tpu/models/sd/unet.py``).
+"""Stable-Diffusion 1.x conditional UNet (port of ``superdiff_tpu/models/sd/unet.py``),
+and SDXL's (``SDUNetConfig.sdxl_base()``).
 
 Public layout as in the JAX package: latents NHWC (B, H/8, W/8, 4) in,
-fp32 NHWC eps out; contexts (B, 77, 768). Inside, activations are NCHW
+fp32 NHWC eps out; contexts (B, 77, 768) (SDXL: (B, 77, 2048)). Inside, activations are NCHW
 tensors in ``channels_last`` memory, so the (B, H*W, C) token view of the
 transformer blocks is free and cuDNN runs its NHWC convolutions.
 
@@ -36,17 +37,29 @@ taps are non-persistent buffers, built once on the CPU when the module is
 made (the state dict is unchanged): a forward copies nothing from the
 host, so a sampler step can be captured in a CUDA graph.
 
+**SDXL** (stabilityai/stable-diffusion-xl-base-1.0 ``unet/config.json``):
+per-level transformer depth (``transformer_layers_per_block``; the mid
+block takes the last level's) and head counts (``attention_head_dim`` per
+level, as diffusers reads it), levels without attention at either end, and
+the ``text_time`` added embedding: the six size ids through
+``Timesteps(256)`` (cos first), concatenated with the pooled text
+embedding (``text_embeds``), through ``add_embed_1``, SiLU, ``add_embed_2``
+and added to the time embedding that every resnet reads.
+
 **Conditioning dedup**: when ``context.shape[0]`` is a multiple g of the
 latent batch, the latents are shared by g conditioning groups (group-major).
-Everything before the first cross-attention runs once; the batch is tiled
-where context first enters (``attn2``), in the time embedding, in the
-transformer residual and in the skips.
+Everything before conditioning first enters runs once; the batch is tiled
+there. Without the added embedding that is the first cross-attention
+(``attn2``), and the time embedding, the transformer residual and the skips
+are tiled where they meet the grown batch; with it the time embedding
+differs per conditioning, so only ``conv_in`` runs once and its output is
+tiled before the first resnet.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Tuple
+from typing import Optional, Tuple, Union
 
 import torch
 import torch.nn.functional as F
@@ -87,7 +100,14 @@ class SDUNetConfig:
     block_out_channels: Tuple[int, ...] = (320, 640, 1280, 1280)
     layers_per_block: int = 2
     cross_attention_dim: int = 768
-    attention_head_dim: int = 8  # heads per attention (SD1.x: 8 heads)
+    # heads per attention (SD1.x: 8 heads), or one count per level (SDXL)
+    attention_head_dim: Union[int, Tuple[int, ...]] = 8
+    # transformer blocks per attention, or one count per level (SDXL)
+    transformer_layers_per_block: Union[int, Tuple[int, ...]] = 1
+    # None, or "text_time" (SDXL): pooled text + size ids into the time embedding
+    addition_embed_type: Optional[str] = None
+    addition_time_embed_dim: int = 256
+    projection_class_embeddings_input_dim: int = 2816
     down_block_types: Tuple[str, ...] = (
         "CrossAttnDownBlock2D", "CrossAttnDownBlock2D", "CrossAttnDownBlock2D",
         "DownBlock2D",
@@ -108,6 +128,35 @@ class SDUNetConfig:
             raise ValueError(f"attn_impl {self.attn_impl!r}; one of {ATTN_IMPLS}")
         if self.ffn_impl not in FFN_IMPLS:
             raise ValueError(f"ffn_impl {self.ffn_impl!r}; one of {FFN_IMPLS}")
+        if self.addition_embed_type not in (None, "text_time"):
+            raise ValueError(f"addition_embed_type {self.addition_embed_type!r}; None or "
+                             "'text_time'")
+        n = len(self.block_out_channels)
+        for name in ("attention_head_dim", "transformer_layers_per_block"):
+            v = getattr(self, name)
+            if not isinstance(v, int) and len(v) != n:
+                raise ValueError(f"{name}: an int or one per level ({n}); got {v!r}")
+
+    def level(self, name: str, i: int) -> int:
+        """``attention_head_dim`` or ``transformer_layers_per_block`` at level ``i``."""
+        v = getattr(self, name)
+        return v if isinstance(v, int) else v[i]
+
+    @property
+    def added_embedding(self) -> bool:
+        """Whether the forward takes pooled text and size ids (SDXL)."""
+        return self.addition_embed_type == "text_time"
+
+    @staticmethod
+    def sdxl_base(**kw) -> "SDUNetConfig":
+        """SDXL base 1.0 (stabilityai/stable-diffusion-xl-base-1.0
+        ``unet/config.json``): 70 transformer blocks, head dim 64."""
+        return SDUNetConfig(**{**dict(
+            block_out_channels=(320, 640, 1280), cross_attention_dim=2048,
+            attention_head_dim=(5, 10, 20), transformer_layers_per_block=(1, 2, 10),
+            down_block_types=("DownBlock2D", "CrossAttnDownBlock2D", "CrossAttnDownBlock2D"),
+            up_block_types=("CrossAttnUpBlock2D", "CrossAttnUpBlock2D", "UpBlock2D"),
+            addition_embed_type="text_time"), **kw})
 
     @staticmethod
     def tiny() -> "SDUNetConfig":
@@ -121,6 +170,16 @@ class SDUNetConfig:
 
 def _linear(i, o, dtype, bias=True):
     return nn.Linear(i, o, bias=bias, dtype=dtype)
+
+
+def _tile_count(big: str, rows: int, small: str, of: int) -> int:
+    """The conditioning dedup's tile count where ``big`` (``rows`` rows)
+    meets ``small`` (``of`` rows); raises unless ``rows`` is a whole
+    multiple of ``of`` (a ``repeat`` by 0 or a remainder dropped)."""
+    if of < 1 or rows < of or rows % of:
+        raise ValueError(f"conditioning dedup: {rows} rows of {big} against {of} of {small}; "
+                         "the first must be a whole multiple of the second")
+    return rows // of
 
 
 class CrossAttention(nn.Module):
@@ -205,7 +264,8 @@ class TransformerBlock(nn.Module):
         x = x + self.attn1(self.norm1(x))
         if context.shape[0] != x.shape[0]:
             # conditioning dedup: expand group-major where context enters
-            x = x.repeat(context.shape[0] // x.shape[0], 1, 1)
+            g = _tile_count("the context", context.shape[0], "the activations", x.shape[0])
+            x = x.repeat(g, 1, 1)
         x = x + self.attn2(self.norm2(x), context)
         proj = self.ff_geglu.proj
         if self.ffn_impl == "einsum":
@@ -221,22 +281,27 @@ class TransformerBlock(nn.Module):
 
 
 class SpatialTransformer(nn.Module):
-    """GroupNorm -> proj_in -> transformer block -> proj_out, residual."""
+    """GroupNorm -> proj_in -> ``depth`` transformer blocks (``block_0``
+    ...) -> proj_out, residual."""
 
     def __init__(self, channels: int, heads: int, context_dim: int, dtype=torch.bfloat16,
-                 attn_impl: str = "flash_eod", ffn_impl: str = "fused"):
+                 attn_impl: str = "flash_eod", ffn_impl: str = "fused", depth: int = 1):
         super().__init__()
+        self.depth = depth
         # diffusers Transformer2DModel input GroupNorm uses eps 1e-6
         self.norm = GroupNorm32(channels, eps=1e-6)
         self.proj_in = _linear(channels, channels, dtype)
-        self.block_0 = TransformerBlock(channels, heads, context_dim, dtype, attn_impl,
-                                        ffn_impl)
+        for k in range(depth):
+            self.add_module(f"block_{k}", TransformerBlock(channels, heads, context_dim, dtype,
+                                                           attn_impl, ffn_impl))
         self.proj_out = _linear(channels, channels, dtype)
 
     def forward(self, x: torch.Tensor, context: torch.Tensor) -> torch.Tensor:
         b, c, h, w = x.shape
-        z = self.norm(x).permute(0, 2, 3, 1).reshape(b, h * w, c)
-        z = self.proj_out(self.block_0(self.proj_in(z), context))
+        z = self.proj_in(self.norm(x).permute(0, 2, 3, 1).reshape(b, h * w, c))
+        for k in range(self.depth):
+            z = getattr(self, f"block_{k}")(z, context)
+        z = self.proj_out(z)
         # the batch may have grown inside the block (conditioning dedup)
         z = z.reshape(-1, h, w, c).permute(0, 3, 1, 2)
         if z.shape[0] != b:
@@ -260,8 +325,10 @@ class ResnetBlock2D(nn.Module):
         h = self.conv1(self.norm1(x, silu=True))
         te = self.time_emb_proj(F.silu(temb))
         if te.shape[0] != h.shape[0]:
-            # conditioning dedup: all groups share t, so the tile is exact
-            te = te.repeat(h.shape[0] // te.shape[0], 1)
+            # conditioning dedup past the first cross-attention: the time
+            # embedding (no added embedding) is the groups' shared one
+            g = _tile_count("the activations", h.shape[0], "the time embedding", te.shape[0])
+            te = te.repeat(g, 1)
         h = self.conv2(self.norm2(h, shift=te, silu=True))
         if self.conv_shortcut is not None:
             x = self.conv_shortcut(x)
@@ -317,12 +384,25 @@ class SDUNet(nn.Module):
         self.dtype = dtype
         ch0 = cfg.block_out_channels[0]
         temb_ch = 4 * ch0
-        heads, ctx_dim = cfg.attention_head_dim, cfg.cross_attention_dim
+        ctx_dim = cfg.cross_attention_dim
         self.time_embed_1 = _linear(ch0, temb_ch, dtype)
         self.register_buffer("temb_freqs",
                              sd_timestep_freqs(ch0).to(self.time_embed_1.weight.device),
                              persistent=False)
         self.time_embed_2 = _linear(temb_ch, temb_ch, dtype)
+        if cfg.added_embedding:
+            self.add_embed_1 = _linear(cfg.projection_class_embeddings_input_dim, temb_ch, dtype)
+            self.add_embed_2 = _linear(temb_ch, temb_ch, dtype)
+            self.register_buffer(
+                "add_time_freqs",
+                sd_timestep_freqs(cfg.addition_time_embed_dim).to(self.add_embed_1.weight.device),
+                persistent=False)
+
+        def transformer(ch, i):
+            return SpatialTransformer(ch, cfg.level("attention_head_dim", i), ctx_dim, dtype,
+                                      cfg.attn_impl, cfg.ffn_impl,
+                                      cfg.level("transformer_layers_per_block", i))
+
         self.conv_in = nn.Conv2d(cfg.in_channels, ch0, 3, padding=1, dtype=dtype)
         n = len(cfg.block_out_channels)
         ch, skips = ch0, [ch0]
@@ -332,8 +412,7 @@ class SDUNet(nn.Module):
                 self.add_module(f"down_{i}_res_{j}", ResnetBlock2D(ch, out_ch, temb_ch, dtype))
                 ch = out_ch
                 if block_type == "CrossAttnDownBlock2D":
-                    self.add_module(f"down_{i}_attn_{j}", SpatialTransformer(
-                        ch, heads, ctx_dim, dtype, cfg.attn_impl, cfg.ffn_impl))
+                    self.add_module(f"down_{i}_attn_{j}", transformer(ch, i))
                 skips.append(ch)
             if i != n - 1:
                 # symmetric stride-2 padding, as torch's Downsample2D
@@ -341,8 +420,7 @@ class SDUNet(nn.Module):
                                 nn.Conv2d(ch, ch, 3, stride=2, padding=1, dtype=dtype))
                 skips.append(ch)
         self.mid_res_0 = ResnetBlock2D(ch, ch, temb_ch, dtype)
-        self.mid_attn = SpatialTransformer(ch, heads, ctx_dim, dtype, cfg.attn_impl,
-                                           cfg.ffn_impl)
+        self.mid_attn = transformer(ch, n - 1)
         self.mid_res_1 = ResnetBlock2D(ch, ch, temb_ch, dtype)
         for i, block_type in enumerate(cfg.up_block_types):
             out_ch = cfg.block_out_channels[n - 1 - i]
@@ -351,15 +429,34 @@ class SDUNet(nn.Module):
                                 ResnetBlock2D(ch + skips.pop(), out_ch, temb_ch, dtype))
                 ch = out_ch
                 if block_type == "CrossAttnUpBlock2D":
-                    self.add_module(f"up_{i}_attn_{j}", SpatialTransformer(
-                        ch, heads, ctx_dim, dtype, cfg.attn_impl, cfg.ffn_impl))
+                    self.add_module(f"up_{i}_attn_{j}", transformer(ch, n - 1 - i))
             if i != n - 1:
                 self.add_module(f"up_{i}_upsample", SubpixelUpsample(ch, ch))
         self.norm_out = GroupNorm32(ch)
         self.conv_out = nn.Conv2d(ch, cfg.out_channels, 3, padding=1, dtype=dtype)
 
-    def forward(self, x: torch.Tensor, t, context: torch.Tensor) -> torch.Tensor:
+    def add_embedding(self, text_embeds: torch.Tensor, time_ids: torch.Tensor) -> torch.Tensor:
+        """SDXL's ``text_time`` embedding (rows, 4 * C0) in the compute
+        dtype: the pooled text (rows, P) and the size ids, (6,) shared by
+        every row or (rows, 6), each id through ``Timesteps(256)``."""
+        dt, rows = self.dtype, text_embeds.shape[0]
+        ids = time_ids.float().reshape(-1, time_ids.shape[-1])
+        te = sd_timestep_embedding(ids.reshape(-1), self.config.addition_time_embed_dim,
+                                   freqs=self.add_time_freqs).reshape(ids.shape[0], -1)
+        h = torch.cat([text_embeds.to(dt), te.to(dt).expand(rows, -1)], dim=-1)
+        return self.add_embed_2(F.silu(self.add_embed_1(h)))
+
+    def forward(self, x: torch.Tensor, t, context: torch.Tensor,
+                text_embeds: Optional[torch.Tensor] = None,
+                time_ids: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """``text_embeds`` (rows of ``context``, P) and ``time_ids`` (6,)
+        or (rows, 6): SDXL's added conditioning, given exactly when the
+        config has it."""
         cfg, dt = self.config, self.dtype
+        if cfg.added_embedding != (text_embeds is not None and time_ids is not None):
+            raise ValueError("SDUNet: text_embeds and time_ids are given exactly when the "
+                             "config has the added embedding (addition_embed_type "
+                             f"{cfg.addition_embed_type!r})")
         t = torch.as_tensor(t, dtype=torch.float32, device=x.device)
         temb = sd_timestep_embedding(t.reshape(-1).expand(x.shape[0]),
                                      cfg.block_out_channels[0], freqs=self.temb_freqs)
@@ -367,6 +464,15 @@ class SDUNet(nn.Module):
         context = context.to(dt)
         h = x.to(dt).permute(0, 3, 1, 2).contiguous(memory_format=torch.channels_last)
         h = self.conv_in(h)
+        if cfg.added_embedding:
+            # the time embedding differs per conditioning from here on: the
+            # shared latents are tiled after conv_in, the last shared op
+            if text_embeds.shape[0] != context.shape[0]:
+                raise ValueError(f"SDUNet: text_embeds has {text_embeds.shape[0]} rows, the "
+                                 f"context {context.shape[0]}")
+            g = _tile_count("the context", context.shape[0], "the latents", h.shape[0])
+            temb = temb.repeat(g, 1) + self.add_embedding(text_embeds, time_ids)
+            h = h.permute(0, 2, 3, 1).repeat(g, 1, 1, 1).permute(0, 3, 1, 2)  # channels_last
         hs = [h]
         n = len(cfg.block_out_channels)
         for i, block_type in enumerate(cfg.down_block_types):

@@ -82,9 +82,10 @@
 // partial last q tile.
 //
 // Bound on the H100 (4 Lq Lk D flops and Lq Lk exp2 per (b, h)): at D = 40
-// the exp2 on the SFUs (16 / clock / SM) binds, at D = 80 and 160 the tensor
-// cores do, at kv <= 128 the q and output streams do. What this core issues
-// on top: kTwoPass's second Q.K^T, kOnline's rescale of O per kv tile, the
+// the exp2 on the SFUs (16 / clock / SM) binds, at D = 64 the two are within
+// a tenth of each other (0.259 ps of products against 0.239 ps of exp2 a
+// score), at D = 80 and 160 the tensor cores do, at kv <= 128 the q and
+// output streams do. What this core issues on top: kTwoPass's second Q.K^T, kOnline's rescale of O per kv tile, the
 // D = 40 contraction padded to 48, the m64n8 row-sum products, kShort's
 // 80-column score tile; at D = 40 the tensor work and the exp2 overlap only
 // across warpgroups.
@@ -108,13 +109,13 @@ struct Cfg {
   static constexpr bool SHORT = BODY == kShort;
   // consumer warpgroups of 64 query rows: three where their state fits the
   // 128 registers a thread of a 512-thread block may hold (one S tile, P,
-  // O), else two (D = 160: O alone is 80 registers; kOnline at D = 80,
-  // with a 128-wide S tile); more warpgroups in turn keep the tensor cores and the SFUs
+  // O: kTwoPass up to D = 80), else two (D = 160: O alone is 80 registers;
+  // kOnline at D = 80, with a 128-wide S tile); more warpgroups in turn keep the tensor cores and the SFUs
   // busier than deeper pipelining inside one (measured: two S register sets
   // spilled and ran slower). kShort: two, on the same 64 rows of two
   // adjacent heads, whose packed rows (160 or 320 bytes) are whole 32-byte
   // sectors of the q and output streams.
-  static constexpr int CONS = !SHORT && (D == 40 || (D == 80 && BODY == kTwoPass)) ? 3 : 2;
+  static constexpr int CONS = !SHORT && (D == 40 || (D <= 80 && BODY == kTwoPass)) ? 3 : 2;
   static constexpr int BQ = SHORT ? 64 : 64 * CONS;  // query rows per block (kShort: per item)
   static constexpr int THREADS = 128 * (CONS + 1);
   // registers a thread may hold (ptxas compiles every role within the

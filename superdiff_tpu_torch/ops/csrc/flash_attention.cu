@@ -23,9 +23,9 @@
 
 #include "attn_sm90.cuh"
 
-// Head dims this library is instantiated for (SD-1.x: 320/8, 640/8, 1280/8);
-// the wrapper raises on others.
-extern "C" int attn_eod_supports(int D) { return D == 40 || D == 80 || D == 160; }
+// Head dims this library is instantiated for (SD-1.x: 320/8, 640/8, 1280/8;
+// SDXL: 64 at every level); the wrapper raises on others.
+extern "C" int attn_eod_supports(int D) { return D == 40 || D == 64 || D == 80 || D == 160; }
 
 // The kv rows per tile (the k box of the geometry table); L must be a
 // multiple of it (pvtd's own rule; the kernel clips any tail).
@@ -41,6 +41,7 @@ extern "C" int attn_eod_launch(const void* qt, const void* k, const void* vt, vo
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (D) {
     case 40: return launch<40, true, kTwoPass, kSumBf16>(qt, k, vt, out, B, H, L, L, geom, scale, s);
+    case 64: return launch<64, true, kTwoPass, kSumBf16>(qt, k, vt, out, B, H, L, L, geom, scale, s);
     case 80: return launch<80, true, kTwoPass, kSumBf16>(qt, k, vt, out, B, H, L, L, geom, scale, s);
     case 160: return launch<160, true, kTwoPass, kSumBf16>(qt, k, vt, out, B, H, L, L, geom, scale, s);
     default: return static_cast<int>(cudaErrorInvalidValue);

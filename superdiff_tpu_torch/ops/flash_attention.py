@@ -43,9 +43,11 @@ every encode argument (:func:`map_cache_stats` counts its hits). The
 packed-layout kernels (``_kernel_mh_nat``, ``_kernel_cross_packed``) take
 (B, H, L, D) views of the packed (B, L, H*D) projections and write their
 output packed: no layout copy. A CUDA tensor is launched or raises (bf16,
-head dims 40 / 80 / 160, rows 16-byte aligned with unit stride along D; the
-d-major kernel takes L a multiple of 64, the (B, H, L, D) kernel any kv, up
-to 128 in the ``_kernel_cross_packed`` mode); a CPU tensor takes the
+head dims 40 / 80 / 160, and 64 on the d-major kernel (SDXL at 1024 px: rows
+it hands over to the (B, H, L, D) kernel, as at 576 tokens, raise), rows
+16-byte aligned with unit stride along D; the d-major kernel takes L a multiple of
+64, the (B, H, L, D) kernel any kv, up to 128 in the
+``_kernel_cross_packed`` mode); a CPU tensor takes the
 kernel's plain PyTorch version, which rounds where the TPU body rounds.
 Forward-mode derivatives go through :func:`_reference` /
 :func:`_reference_bhld` / :func:`_reference_eod`, as the JAX ``custom_jvp``
@@ -402,7 +404,7 @@ def _launch(qt, k, vt, sm_scale):
     tile = lib.attn_eod_tile()
     if not lib.attn_eod_supports(d) or l % tile:
         raise ValueError(
-            f"flash_mha_eod: kernel takes head_dim 40, 80 or 160 and L a "
+            f"flash_mha_eod: kernel takes head_dim 40, 64, 80 or 160 and L a "
             f"multiple of {tile}; got D={d}, L={l}")
     out = torch.empty((b, h, d, l), dtype=qt.dtype, device=qt.device)
     geom = _tma_geometry("flash_mha_eod", qt, k, vt, out, dmajor=True, bk=tile)

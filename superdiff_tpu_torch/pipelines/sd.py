@@ -30,6 +30,13 @@ steps, the port's counterpart of the JAX sampler's ``lax.scan``; the loop
 is kept on the ``SDModules`` (``or_loop``, one at a time), so a later run
 of the same shapes and config replays every step. ``capture=False`` calls
 the same step eagerly, as the CPU does. The other methods run eagerly.
+
+SDXL (``build_sd_modules`` with ``SDUNetConfig.sdxl_base()``): two text
+towers whose penultimate states are concatenated into the 2048-wide
+context, the pooled embeddings of the second tower and the size ids into
+the UNet's added embedding (``pooled``, a static buffer of the ``or``
+loop beside the contexts), zeros for the unconditional context and pooled
+embedding where the modules say ``force_zeros_for_empty_prompt``.
 """
 
 from __future__ import annotations
@@ -74,7 +81,9 @@ class SDPipelineConfig:
 
 @dataclasses.dataclass
 class SDModules:
-    """Model bundle: UNet + text encoder + VAE decoder on one device."""
+    """Model bundle: UNet + text encoder + VAE decoder on one device; SDXL's
+    second tower and tokenizer and whether the empty prompt's embeddings
+    are zeros."""
 
     unet: SDUNet
     text: CLIPTextEncoder
@@ -82,6 +91,9 @@ class SDModules:
     vae: VAEDecoder
     vae_scaling: float
     device: torch.device
+    text_2: Optional[CLIPTextEncoder] = None
+    tokenizer_2: Optional[Tokenizer] = None
+    force_zeros_for_empty_prompt: bool = False
     # the captured ``or`` loop of the last captured run (its static buffers
     # and CUDA graph), replayed by the next run of the same shapes and config
     or_loop: Optional["_OrLoop"] = dataclasses.field(default=None, init=False, repr=False,
@@ -102,18 +114,35 @@ def build_sd_modules(
     ``seed`` with the Flax initialisers' distributions; then, when
     ``weights_dir`` is given, load the HF diffusers safetensors found there
     (``models/sd/convert.py``; a module whose file is absent keeps its random
-    init) and take the tokenizer from it."""
+    init) and take the tokenizer from it. A UNet config with the added
+    embedding builds the SDXL stack: the second tower (OpenCLIP
+    ViT-bigG/14; the first defaults to CLIP ViT-L/14 read penultimate), its
+    tokenizer padding with 0, zeros for the empty prompt
+    (SDXL base 1.0's ``force_zeros_for_empty_prompt``) and SDXL's latent
+    scale (0.13025) unless ``vae_config`` is given."""
     device = torch.device(device)
     gen = torch.Generator(device=device).manual_seed(seed)
     ucfg = unet_config or SDUNetConfig()
-    tcfg = text_config or CLIPTextConfig()
-    vcfg = vae_config or VAEConfig()
+    xl = ucfg.added_embedding
+    tcfg = text_config or (CLIPTextConfig.sdxl_l() if xl else CLIPTextConfig())
+    vcfg = vae_config or (VAEConfig(scaling_factor=0.13025) if xl else VAEConfig())
+    if xl and weights_dir:
+        raise NotImplementedError("build_sd_modules: no SDXL safetensors mapping yet "
+                                  "(models/sd/convert.py maps SD-1.x)")
     with torch.device(device):
         unet = SDUNet(ucfg, dtype=dtype)
         text = CLIPTextEncoder(tcfg, dtype=dtype)
         vae = VAEDecoder(vcfg, dtype=dtype)
-    for m in (unet, text, vae):
-        init_like_flax_(m, gen).eval().requires_grad_(False)
+        text_2 = (CLIPTextEncoder(CLIPTextConfig.sdxl_g(), dtype=dtype)
+                  if xl else None)
+    for m in (unet, text, vae, text_2):
+        if m is not None:
+            init_like_flax_(m, gen).eval().requires_grad_(False)
+    if xl:
+        return SDModules(unet=unet, text=text, tokenizer=Tokenizer(tcfg), vae=vae,
+                         vae_scaling=vcfg.scaling_factor, device=device, text_2=text_2,
+                         tokenizer_2=Tokenizer(text_2.cfg, pad_id=0),
+                         force_zeros_for_empty_prompt=True)
     if weights_dir:
         convert.load_sd_weights(
             weights_dir, unet, text, vae, clip_num_layers=tcfg.num_layers,
@@ -124,9 +153,27 @@ def build_sd_modules(
                      vae=vae, vae_scaling=vcfg.scaling_factor, device=device)
 
 
+def _encode(text: CLIPTextEncoder, tokenizer: Tokenizer, prompts: list[str], span: str,
+            device):
+    """One tower's call on ``prompts``, in a span ``span`` counting its rows
+    (``text_rows``)."""
+    with profiling.span(span):
+        profiling.count("text_rows", len(prompts))
+        ids = torch.as_tensor(tokenizer(prompts), dtype=torch.long, device=device)
+        return text(ids)
+
+
 def encode_prompts(mod: SDModules, prompts: list[str]) -> torch.Tensor:
-    ids = torch.as_tensor(mod.tokenizer(prompts), dtype=torch.long, device=mod.device)
-    return mod.text(ids)
+    return _encode(mod.text, mod.tokenizer, prompts, "encode_l", mod.device)
+
+
+def encode_prompts_xl(mod: SDModules, prompts: list[str]):
+    """SDXL's conditioning of ``prompts``: (the two towers' penultimate
+    states concatenated, (B, 77, 768 + 1280), the second tower's pooled
+    embedding (B, 1280)), fp32."""
+    ctx_l, _ = _encode(mod.text, mod.tokenizer, prompts, "encode_l", mod.device)
+    ctx_g, pooled = _encode(mod.text_2, mod.tokenizer_2, prompts, "encode_g", mod.device)
+    return torch.cat([ctx_l, ctx_g], dim=-1), pooled
 
 
 def _check_method(method: str) -> None:
@@ -157,11 +204,14 @@ class _OrLoop(StepLoop):
     then x, ll and the trace rows written in place and ``idx`` advanced, so
     the same launches serve every step, eagerly or replayed from a graph."""
 
-    def __init__(self, mod: SDModules, cfg: SDPipelineConfig, table, x_init, zs, big_c):
+    def __init__(self, mod: SDModules, cfg: SDPipelineConfig, table, x_init, zs, big_c,
+                 added=None):
         dev = x_init.device
         self.unet, self.cfg, self.table = mod.unet, dataclasses.replace(cfg), table
         # the inputs are copied: a kept loop loads the next run's over them
         self.x_init, self.zs, self.big_c = x_init.clone(), zs.clone(), big_c.clone()
+        # SDXL: the pooled embeddings and size ids, static like the contexts
+        self.added = {k: v.clone() for k, v in (added or {}).items()}
         b, n = x_init.shape[0], table.shape[0]
         self.x = x_init.clone()
         self.ll = torch.ones((b, 2), dtype=torch.float32, device=dev)
@@ -170,19 +220,24 @@ class _OrLoop(StepLoop):
         self.lls = torch.zeros((n, b, 2), dtype=torch.float32, device=dev)
         profiling.count("loops_built")
 
-    def fits(self, mod: SDModules, cfg: SDPipelineConfig, x_init, big_c) -> bool:
+    def fits(self, mod: SDModules, cfg: SDPipelineConfig, x_init, big_c, added=None) -> bool:
         """Whether a run of ``mod``'s UNet under ``cfg`` on these inputs can
         replay this loop: the same UNet, config, shapes, dtypes and device."""
-        return (self.unet is mod.unet and self.cfg == cfg
+        added = added or {}
+        pairs = [(self.x_init, x_init), (self.big_c, big_c)]
+        pairs += [(v, added[k]) for k, v in self.added.items() if k in added]
+        return (self.unet is mod.unet and self.cfg == cfg and set(self.added) == set(added)
                 and all(a.shape == b.shape and a.dtype == b.dtype and a.device == b.device
-                        for a, b in ((self.x_init, x_init), (self.big_c, big_c))))
+                        for a, b in pairs))
 
-    def load(self, x_init, zs, big_c):
+    def load(self, x_init, zs, big_c, added=None):
         """This run's inputs into the static buffers."""
         with profiling.span("load"):
             self.x_init.copy_(x_init)
             self.zs.copy_(zs)
             self.big_c.copy_(big_c)
+            for k, v in (added or {}).items():
+                self.added[k].copy_(v)
 
     def reset(self):
         self.x.copy_(self.x_init)
@@ -194,7 +249,7 @@ class _OrLoop(StepLoop):
         t, root, sigma, dsigma = self.table.index_select(0, self.idx)[0].unbind()
         eps = self.zs.index_select(0, self.idx)
         big_x = x if cfg.cond_dedup else x.repeat(3, 1, 1, 1)
-        v_obj, v_bg, v_unc = self.unet(big_x / root, t, self.big_c).chunk(3)
+        v_obj, v_bg, v_unc = self.unet(big_x / root, t, self.big_c, **self.added).chunk(3)
         flat = lambda a: a.reshape(b, -1).contiguous()
         new_x, new_ll, kappa = sd_or_step(
             flat(v_obj), flat(v_bg), flat(v_unc), flat(x), flat(eps), self.ll, sigma, dsigma,
@@ -228,6 +283,7 @@ def superdiff_sd_sample(
     generator: Optional[torch.Generator] = None,
     noise: Optional[Tuple[torch.Tensor, ...]] = None,
     capture: Optional[bool] = None,
+    pooled: Optional[Tuple[torch.Tensor, ...]] = None,
 ) -> Tuple[torch.Tensor, dict]:
     """Run one composed generation; returns (final latents NHWC fp32, traces).
 
@@ -242,6 +298,9 @@ def superdiff_sd_sample(
     another method raises); ``False`` runs the same step eagerly. The
     captured loop stays on ``mod`` (``mod.or_loop``) until a captured run of
     other shapes or config replaces it; ``mod.or_loop = None`` frees it.
+    ``pooled`` (SDXL): the (obj, bg, uncond) pooled text embeddings, each
+    (B, P), arranged as the contexts are; the size ids are the request's
+    (height, width, 0, 0, height, width), diffusers' default.
     """
     with profiling.span("sample"):
         _check_method(method)
@@ -265,15 +324,27 @@ def superdiff_sd_sample(
                       else ito.rademacher((n,) + shape, generator, device=dev))
         x = x_unc = x0 * grid.init_noise_sigma
         is_sd_baseline = method.startswith("sd_")
-        big_c = torch.cat([ctx_obj, ctx_unc, ctx_unc] if is_sd_baseline
-                          else [ctx_obj, ctx_bg, ctx_unc])
+
+        def arrange(obj, bg, unc):
+            """The conditioning groups of the forward, group-major."""
+            return torch.cat([obj, unc, unc] if is_sd_baseline else [obj, bg, unc])
+
+        big_c = arrange(ctx_obj, ctx_bg, ctx_unc)
+        added = {}
+        if pooled is not None:
+            # SDXL's size ids: original size, crop corner, target size
+            ids = (cfg.height, cfg.width, 0, 0, cfg.height, cfg.width)
+            added = {"text_embeds": arrange(*pooled),
+                     "time_ids": torch.tensor(ids, dtype=torch.float32, device=dev)}
         if method == "or":
-            if capture and mod.or_loop is not None and mod.or_loop.fits(mod, cfg, x, big_c):
-                mod.or_loop.load(x, zs, big_c)
+            if (capture and mod.or_loop is not None
+                    and mod.or_loop.fits(mod, cfg, x, big_c, added)):
+                mod.or_loop.load(x, zs, big_c, added)
                 return mod.or_loop.run(capture)
             if capture:
                 mod.or_loop = None  # its graph's memory goes before the next is captured
-            loop = _OrLoop(mod, cfg, or_step_table(timesteps, sigmas).to(dev), x, zs, big_c)
+            loop = _OrLoop(mod, cfg, or_step_table(timesteps, sigmas).to(dev), x, zs, big_c,
+                           added)
             if capture:
                 mod.or_loop = loop
             return loop.run(capture)
@@ -281,15 +352,17 @@ def superdiff_sd_sample(
         ll_obj = ll_bg = ll_unc = torch.ones(b, dtype=torch.float32, device=dev)
         kappa = torch.full((b,), 0.5, dtype=torch.float32, device=dev)
         traces = {"kappa": [], "ll_obj": [], "ll_bg": []}
+        # t and sqrt(sigma^2 + 1) of every step on the device in one copy: a
+        # copy from the host each step would wait for the card to drain
+        table = or_step_table(timesteps, sigmas).to(dev)
         for i in profiling.steps(range(n), "steps_eager"):
             sigma = sigmas[i]
             dsigma = sigmas[i + 1] - sigmas[i]
-            t = timesteps[i].to(dev)
-            root = torch.sqrt(sigma**2 + 1.0).to(dev)
+            t, root = table[i, 0], table[i, 1]
 
             def vels(big_x):
                 """One UNet forward over the conditioning batch."""
-                return mod.unet(big_x / root, t, big_c)
+                return mod.unet(big_x / root, t, big_c, **added)
 
             if method not in ("and_ode", "avg_ode"):
                 noise_i = torch.sqrt(2.0 * abs(dsigma) * sigma) * zs[i]
@@ -355,16 +428,20 @@ def make_sampler(mod: SDModules, method: str, cfg: SDPipelineConfig, *,
     (latents, traces). ``capture`` as in :func:`superdiff_sd_sample`."""
     _check_method(method)
 
-    def run(ctx_obj, ctx_bg, ctx_unc, *, generator=None, noise=None):
+    def run(ctx_obj, ctx_bg, ctx_unc, pooled=None, *, generator=None, noise=None):
         return superdiff_sd_sample(mod, method, ctx_obj, ctx_bg, ctx_unc, cfg,
-                                   generator=generator, noise=noise, capture=capture)
+                                   generator=generator, noise=noise, capture=capture,
+                                   pooled=pooled)
 
     return run
 
 
 def prepare_contexts(mod: SDModules, method: str, obj: str, bg: str, batch_size: int):
     """(ctx_obj, ctx_bg, ctx_unc), each (batch_size, 77, hidden); the
-    ``sd_*`` baselines build their one prompt from both concepts."""
+    ``sd_*`` baselines build their one prompt from both concepts. SDXL
+    (``mod.text_2``): (ctx_obj, ctx_bg, ctx_unc, (pooled_obj, pooled_bg,
+    pooled_unc)), obj and bg through both towers in one call each, the
+    unconditional ones zeros under ``force_zeros_for_empty_prompt``."""
     _check_method(method)
     obj_prompt = {
         "sd_ab": f"{obj} that looks like {bg}", "sd_ab_or": f"{obj} or {bg}",
@@ -372,7 +449,16 @@ def prepare_contexts(mod: SDModules, method: str, obj: str, bg: str, batch_size:
         "sd_b": bg,
     }.get(method, obj)
     with torch.no_grad(), profiling.span("encode"):
-        return tuple(encode_prompts(mod, [p] * batch_size) for p in (obj_prompt, bg, ""))
+        if mod.text_2 is None:
+            return tuple(encode_prompts(mod, [p] * batch_size) for p in (obj_prompt, bg, ""))
+        prompts = [obj_prompt] * batch_size + [bg] * batch_size
+        if not mod.force_zeros_for_empty_prompt:
+            prompts += [""] * batch_size
+        ctx, pooled = encode_prompts_xl(mod, prompts)
+        if mod.force_zeros_for_empty_prompt:
+            ctx = torch.cat([ctx, torch.zeros_like(ctx[:batch_size])])
+            pooled = torch.cat([pooled, torch.zeros_like(pooled[:batch_size])])
+        return (*ctx.chunk(3), pooled.chunk(3))
 
 
 def generate(

@@ -2,6 +2,7 @@
 the JAX package, tiny configs, fp32 on the CPU (tolerance 1e-5 relative to
 the output's largest magnitude: sums in other orders)."""
 
+import dataclasses
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -26,7 +27,10 @@ def _close(got, ref, tol=1e-5):
 @pytest.mark.parametrize("prompts", [["a cat", ""], ["a photo of a dog on the grass"]])
 def test_tokenizer_fallback_ids_match_jax(prompts):
     for cfg in (CLIPTextConfig(), CLIPTextConfig.tiny()):
-        jcfg = jclip.CLIPTextConfig(**vars(cfg))
+        # the JAX config's fields (the port's adds SDXL's activation,
+        # projection and output mode, at CLIP-L's values here)
+        jcfg = jclip.CLIPTextConfig(**{f.name: getattr(cfg, f.name)
+                                       for f in dataclasses.fields(jclip.CLIPTextConfig)})
         np.testing.assert_array_equal(Tokenizer(cfg)(prompts), jclip.Tokenizer(jcfg)(prompts))
 
 

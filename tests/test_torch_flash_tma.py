@@ -186,7 +186,7 @@ def test_cuda_launch_raises_on_cpu_tensors_before_any_geometry():
         fa._launch(qt, qt.transpose(2, 3), qt, 40**-0.5)
 
 
-@pytest.mark.parametrize("d", [40, 80])
+@pytest.mark.parametrize("d", [40, 64, 80])
 def test_bf16_sum_plain_version_matches_pvtd_interpret_within_one_ulp(d):
     """The plain version phase 2 of chip_smoke.py holds the d-major kernel
     to, against the pvtd Pallas kernel it replaces (L = 512: pvtd1)."""

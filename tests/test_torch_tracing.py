@@ -91,9 +91,12 @@ def test_sd_request_tree():
     assert kids[request.id] == ["encode", "sample", "decode"]
     sample, steps = _one(rec, "sample"), _one(rec, "steps")
     assert kids[sample.id] == ["steps"] and kids[steps.id] == ["step"] * STEPS
-    assert kids[_one(rec, "encode").id] == [] and kids[_one(rec, "decode").id] == []
+    # the three encodings, each a call of CLIP-L counting its rows
+    encodes = [s for s in rec.spans if s.name == "encode_l"]
+    assert kids[_one(rec, "encode").id] == ["encode_l"] * 3 and kids[_one(rec, "decode").id] == []
+    assert [s.counts for s in encodes] == [{"text_rows": BATCH}] * 3
     assert steps.counts == {"steps_eager": STEPS} and sample.counts == {"loops_built": 1}
-    assert rec.totals == {"steps_eager": STEPS, "loops_built": 1,
+    assert rec.totals == {"steps_eager": STEPS, "loops_built": 1, "text_rows": 3 * BATCH,
                           "group_norms": STEPS * _norms(mod.unet) + _norms(mod.vae)}
     for s in rec.spans:
         assert s.end_ns is not None and s.start_ns <= s.end_ns
